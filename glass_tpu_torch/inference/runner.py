@@ -1,0 +1,292 @@
+"""Single-image inference API: the ``GlassRunner`` of the port.
+
+Counterpart of ``glass_tpu/inference/runner.py`` (single-image path):
+build the model from a YAML config and a checkpoint, resize the input by the
+demo scale rule (max-side cap / min-side upscale bounded by
+``MAX_UPSCALE_RATIO``), pad it into the same ``TPU.IMAGE_BUCKETS`` as
+glass_tpu (the padded border changes features near the edge and the RPN's
+anchor mask depends on it), run the model, rescale the predictions and
+post-process them on the host.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+from typing import List, Optional, Tuple
+
+import cv2
+import numpy as np
+import torch
+
+from ..config import CfgNode, get_cfg
+from ..device import resolve_device
+from ..models import GlassArch, GlassRCNN, glass_inference_single
+from ..models.context import BatchNorm2d
+from ..models.local_extractor import BasicBlock
+from ..models.resnet import BottleneckBlock
+from ..postprocess import build_post_processor, detector_postprocess
+from ..postprocess.post_processor import scale_rotated_np
+from ..structures import Instances
+from ..text import TextCodec, decode_instance_texts
+from ..utils.common import rgb2grey
+
+logger = logging.getLogger(__name__)
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def shortest_edge_size(h, w, short, max_size):
+    """d2 ``ResizeShortestEdge`` target size (glass_tpu data/mapper.py)."""
+    scale = short / min(h, w)
+    if h < w:
+        new_h, new_w = short, scale * w
+    else:
+        new_h, new_w = scale * h, short
+    if max(new_h, new_w) > max_size:
+        scale2 = max_size / max(new_h, new_w)
+        new_h, new_w = new_h * scale2, new_w * scale2
+    return int(new_h + 0.5), int(new_w + 0.5)
+
+
+def random_init_(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
+    """Fill every weight from one seeded generator: N(0, 2/fan_in) weights,
+    zero biases, unit LayerNorm scales, and nontrivial BN statistics (so
+    eval-mode BN is a real normalization; ``calibrate_batch_norm_`` then
+    matches the statistics to real activations).  The last BN of every
+    residual branch is scaled by 1/4 (d2's zero-init-residual idea, short of
+    zero): a random deep network then amplifies rounding differences ~10x
+    less, so two f32 implementations stay comparable through 50+ layers."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() >= 2:
+                fan_in = p[0].numel() if "tgt_embedding" not in name else 1
+                p.copy_(torch.randn(p.shape, generator=gen) * math.sqrt(2.0 / fan_in))
+            else:
+                p.zero_()
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.weight.copy_(1.0 + 0.1 * torch.randn(m.weight.shape, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=gen))
+            elif isinstance(m, torch.nn.LayerNorm):
+                m.weight.fill_(1.0)
+        for m in model.modules():
+            if isinstance(m, BottleneckBlock):
+                m.conv3.norm.weight.mul_(0.25)
+            elif isinstance(m, BasicBlock):
+                m.bn2.weight.mul_(0.25)
+    return model
+
+
+def calibrate_batch_norm_(model: GlassRCNN, image: torch.Tensor, content_hw) -> GlassRCNN:
+    """Set every BN's running statistics to those of its input on one image
+    (a data-dependent init: a randomly initialized model then keeps its
+    activations of order one through all 50+ layers, so its detections,
+    scores and texts vary as a trained model's do)."""
+
+    def hook(bn, args):
+        x = args[0].to(torch.float32)
+        bn.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, BatchNorm2d)]
+    try:
+        with torch.no_grad():
+            glass_inference_single(model, image, content_hw)
+    finally:
+        for h in handles:
+            h.remove()
+    return model
+
+
+def load_checkpoint_(model: GlassRCNN, path: str) -> GlassRCNN:
+    """Load a detectron2-named ``.pth`` (or a port ``state_dict``) onto the
+    model; buffers of the reference that the port re-derives are skipped."""
+    data = torch.load(path, map_location="cpu", weights_only=False)
+    state = data.get("model", data)
+    own = model.state_dict()
+    loaded = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
+              for k, v in state.items() if k in own}
+    missing = sorted(set(own) - set(loaded))
+    if missing:
+        logger.warning("%d model weights not in the checkpoint, e.g. %s", len(missing), missing[:5])
+    model.load_state_dict(loaded, strict=False)
+    return model
+
+
+def _set_text_fields(inst: Instances, out: dict, sel) -> None:
+    if "text_probs" in out:
+        inst.pred_text_prob = out["text_probs"][sel]
+    if "text_ids" in out:
+        inst.pred_text_ids = out["text_ids"][sel]
+        inst.pred_text_step_scores = out["text_step_scores"][sel]
+
+
+def _unpack_masks(m: np.ndarray) -> np.ndarray:
+    """Dequantize a TPU.MASK_FETCH_DTYPE=uint8 mask fetch back to probs."""
+    if m.dtype == np.uint8:
+        return m.astype(np.float32) / 255.0
+    return m
+
+
+class GlassRunner:
+    def __init__(
+        self,
+        model_path: Optional[str] = None,
+        config_path: Optional[str] = None,
+        opts: Optional[List[str]] = None,
+        post_process: bool = True,
+        cfg: Optional[CfgNode] = None,
+        state_dict: Optional[dict] = None,
+        device=None,
+    ):
+        """Runs on ``cuda`` unless ``device="cpu"``.  Weights come from
+        ``state_dict``, else ``model_path``, else a random init from seed 0."""
+        self.device = resolve_device(device)
+        self.cfg = cfg if cfg is not None else get_cfg(config_path, opts)
+        self.post_process_flag = post_process
+        self.arch = GlassArch.from_config(self.cfg)
+        model = GlassRCNN(self.arch)
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        elif model_path:
+            logger.info("Loading checkpoint %s", model_path)
+            load_checkpoint_(model, model_path)
+        else:
+            logger.warning("No checkpoint given; random-initializing weights (seed 0)")
+            random_init_(model, 0)
+        self.model = model.eval().to(self.device)
+
+        self.min_target_size = self.cfg.INPUT.MIN_SIZE_TEST
+        self.max_target_size = self.cfg.INPUT.MAX_SIZE_TEST
+        self.max_upscale_ratio = self.cfg.INPUT.MAX_UPSCALE_RATIO
+        self.input_format = self.cfg.INPUT.FORMAT
+        assert self.input_format in ("RGB", "BGR", "GREY")
+        self.codec = TextCodec.from_config(self.cfg)
+        self.post_processor = build_post_processor(self.cfg)
+        self.pad_multiple = self.cfg.TPU.PAD_IMAGE_TO_MULTIPLE
+        self.buckets = [tuple(b) for b in self.cfg.TPU.IMAGE_BUCKETS]
+        pp = self.cfg.POST_PROCESSING
+        self.filter_small_boxes = pp.MIN_BOX_DIMENSION
+        self.inflate_ratio = pp.INFLATE_RATIO
+        self.drop_overlapping = pp.DROP_OVERLAPPING
+        self.ioa_threshold = pp.IOA_THRESHOLD
+        self.valid_score = self.cfg.INFERENCE_TH_TEST
+
+    # -- geometry ---------------------------------------------------------
+    def get_inference_scale_ratio(self, image_shape) -> float:
+        """Reference glass_runner.py:111-121."""
+        height, width = image_shape[:2]
+        max_dim = max(height, width)
+        if max_dim > self.max_target_size:
+            return self.max_target_size / max_dim
+        if max_dim < self.min_target_size:
+            return min(self.max_upscale_ratio, self.min_target_size / max_dim)
+        return 1.0
+
+    def _pick_bucket(self, h: int, w: int) -> Tuple[int, int]:
+        ph = round_up(h, self.pad_multiple)
+        pw = round_up(w, self.pad_multiple)
+        candidates = [b for b in self.buckets if b[0] >= ph and b[1] >= pw]
+        if not candidates:
+            return ph, pw
+        return min(candidates, key=lambda b: b[0] * b[1])
+
+    # -- model invocation -------------------------------------------------
+    def run_model(self, image: np.ndarray) -> dict:
+        """Pad an already-resized HWC BGR image into its bucket and run the
+        model: the fixed-capacity outputs as numpy arrays."""
+        h, w = image.shape[:2]
+        bh, bw = self._pick_bucket(h, w)
+        pad_dtype = np.uint8 if image.dtype == np.uint8 else np.float32
+        padded = np.zeros((bh, bw, 3), pad_dtype)
+        padded[:h, :w] = image
+        with torch.inference_mode():
+            out = glass_inference_single(
+                self.model, torch.from_numpy(padded).to(self.device), (h, w)
+            )
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def run_on_resized(self, image: np.ndarray) -> Instances:
+        """Raw (un-postprocessed) instances at the resized image's scale."""
+        h, w = image.shape[:2]
+        out = self.run_model(image)
+        valid = out["valid"]
+        inst = Instances(
+            (h, w),
+            pred_boxes=out["boxes"][valid],
+            scores=out["scores"][valid],
+            pred_classes=out["classes"][valid],
+            orientations=out["orientations"][valid],
+        )
+        _set_text_fields(inst, out, valid)
+        if "mask_probs" in out:
+            inst.pred_masks = _unpack_masks(out["mask_probs"][valid])
+            inst.pred_rboxes = out["boxes"][valid]
+        return inst
+
+    def _model_postprocess(self, preds: Instances, height: int, width: int) -> Instances:
+        """GlassRCNN._postprocess (reference glass_rcnn.py:103-128)."""
+        if self.filter_small_boxes:
+            preds = self.post_processor.filter_small_boxes(preds)
+        if self.inflate_ratio:
+            preds = self.post_processor.resize_boxes(preds, self.inflate_ratio)
+        if self.drop_overlapping:
+            preds = self.post_processor.drop_overlapping_boxes(
+                preds, self.ioa_threshold, self.valid_score
+            )
+        return detector_postprocess(preds, height, width)
+
+    def _to_bgr(self, image: np.ndarray) -> np.ndarray:
+        if self.input_format == "RGB":
+            image = image[:, :, ::-1]
+        if self.input_format == "GREY":
+            image = rgb2grey(image, three_channels=True)
+        return image
+
+    def __call__(self, original_image: np.ndarray) -> Instances:
+        original_image = self._to_bgr(original_image)
+        image_height, image_width = original_image.shape[:2]
+        scale_ratio = self.get_inference_scale_ratio(original_image.shape)
+        if scale_ratio != 1:
+            new_h = int(np.round(scale_ratio * image_height))
+            new_w = int(np.round(scale_ratio * image_width))
+            image = cv2.resize(
+                original_image.astype(np.float32), (new_w, new_h), interpolation=cv2.INTER_LINEAR
+            )
+        else:
+            image = original_image.astype(np.float32)
+
+        preds = self.run_on_resized(image)
+        preds = self._model_postprocess(preds, image.shape[0], image.shape[1])
+        if scale_ratio != 1 and len(preds):
+            preds.pred_boxes = scale_rotated_np(
+                np.asarray(preds.pred_boxes), 1.0 / scale_ratio, 1.0 / scale_ratio
+            )
+        preds._image_size = (image_height, image_width)
+        logger.info("Detected %d raw word instances", len(preds))
+        if self.post_process_flag:
+            preds = self.post_processor(preds)
+            logger.info("Post-processing output is %d word instances", len(preds))
+        return preds
+
+    def eval_call(self, original_image: np.ndarray) -> Instances:
+        """Dataset-evaluation path: d2 ``ResizeShortestEdge`` (MIN/MAX_SIZE_TEST)
+        and ``detector_postprocess`` back to the original resolution."""
+        original_image = self._to_bgr(original_image)
+        oh, ow = original_image.shape[:2]
+        nh, nw = shortest_edge_size(oh, ow, self.min_target_size, self.max_target_size)
+        resized = cv2.resize(original_image.astype(np.float32), (nw, nh))
+        preds = self.run_on_resized(resized)
+        preds = self._model_postprocess(preds, oh, ow)
+        if self.post_process_flag:
+            preds = self.post_processor(preds)
+        return preds
+
+    def decode_texts(self, preds: Instances):
+        return decode_instance_texts(preds, self.codec)

@@ -1,0 +1,80 @@
+"""Inference forms of the neural-net primitives, in PyTorch.
+
+Counterpart of ``glass_tpu/models/layers.py``.  Activations are NCHW
+tensors (kept in channels-last memory on the backbone path, so a feature
+map's ``permute(0, 2, 3, 1)`` is the contiguous NHWC map the poolers read);
+weights keep PyTorch's layouts (conv OIHW, linear (out, in), recurrent
+weights gate-packed).  As in glass_tpu, parameters stay float32 and each
+op casts its weights to the activation dtype, so ``TPU.COMPUTE_DTYPE``
+bfloat16 runs the convolutions and products in bfloat16.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
+    return F.conv2d(
+        x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
+        stride, padding, dilation, groups,
+    )
+
+
+def conv_transpose2d(x, weight, bias=None, stride=2):
+    """``ConvTranspose2d`` with PyTorch's (in, out, kh, kw) weight."""
+    return F.conv_transpose2d(
+        x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), stride
+    )
+
+
+def linear(x, weight, bias=None):
+    return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+
+
+def max_pool2d(x, kernel, stride=None, padding=0):
+    return F.max_pool2d(x, kernel, stride, padding)
+
+
+def upsample_nearest_2x(x):
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def batch_norm(x, weight, bias, running_mean, running_var, eps: float = 1e-5):
+    """Eval-mode BatchNorm over dim 1: scale and shift are folded in f32,
+    then cast to the activation dtype (glass_tpu's ``batch_norm``)."""
+    denom = torch.sqrt(running_var + eps)
+    scale = (weight / denom).to(x.dtype)
+    shift = (bias - running_mean * weight / denom).to(x.dtype)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return x * scale.reshape(shape) + shift.reshape(shape)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm over the last dim."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    return (x - mean) / torch.sqrt(var + eps) * weight.to(x.dtype) + bias.to(x.dtype)
+
+
+def bilstm(x: torch.Tensor, lstm: nn.LSTM) -> torch.Tensor:
+    """Bidirectional single-layer LSTM over (B, T, I) -> (B, T, 2H), run by
+    PyTorch's LSTM with the module's gate-packed weights cast to x.dtype."""
+    params = {n: p.to(x.dtype) for n, p in lstm.named_parameters()}
+    out, _ = torch.func.functional_call(lstm, params, (x,))
+    return out
+
+
+def gru_cell(x: torch.Tensor, h: torch.Tensor, gru: nn.GRU) -> torch.Tensor:
+    """One GRU step (B, I), (B, H) -> (B, H); PyTorch gate order r, z, n:
+    n = tanh(W_in x + b_in + r * (W_hn h + b_hn))."""
+    gi = linear(x, gru.weight_ih_l0, gru.bias_ih_l0)
+    gh = linear(h, gru.weight_hh_l0, gru.bias_hh_l0)
+    i_r, i_z, i_n = gi.chunk(3, dim=-1)
+    h_r, h_z, h_n = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return (1 - z) * n + z * h

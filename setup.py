@@ -15,11 +15,17 @@ setuptools.setup(
     long_description=open("README.md").read(),
     long_description_content_type="text/markdown",
     license="Apache License 2.0",
-    packages=setuptools.find_packages(include=["glass_tpu", "glass_tpu.*"]),
+    packages=setuptools.find_packages(
+        include=["glass_tpu", "glass_tpu.*", "glass_tpu_torch", "glass_tpu_torch.*"]
+    ),
     include_package_data=True,
     # the C++ polygon-clipping source ships with the package and is built
-    # on first use (glass_tpu/native/build.py)
-    package_data={"glass_tpu.native": ["*.cpp"]},
+    # on first use (glass_tpu/native/build.py); so do the port's CUDA
+    # kernel sources (glass_tpu_torch/ops/_cuda.py)
+    package_data={
+        "glass_tpu.native": ["*.cpp"],
+        "glass_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+    },
     python_requires=">=3.9",
     classifiers=[
         "Programming Language :: Python :: 3",
