@@ -10,10 +10,15 @@ Phases:
      source, started together).
   2. K1 (rotated RoIAlign, csrc/roi_align_rotated.cu) against its plain
      PyTorch version at the three poolers' main-path shapes (960x1600
-     bucket, 100 rois, C=256), in float32 and bfloat16.
+     bucket, 100 rois, C=256), in float32 and bfloat16, then the edge cases
+     of its work split (0 and 1 roi, every roi on the full 4x4 grid, a 6x6
+     grid of more samples than a warp's table holds, C of one 16-byte
+     vector).
   3. K2 (raw-image crop, csrc/crop_rois.cu) likewise: a 960x1600 image in
      uint8 with the normalization folded in and normalized in f32/bf16,
-     100 rois, sampling ratios 1, 2 and 0.
+     100 rois, sampling ratios 1, 2 and 0; edge cases 0 and 1 roi, a
+     ragged 32x100 output and a one-pixel-wide image; and grid_sample on
+     the sampling-ratio-1 points as K2's yardstick of time (``library_ms``).
   4. the main path: GlassRunner on the ICDAR15 eval configuration (config +
      the eval protocol overrides), seeded random weights, bfloat16 compute,
      synthetic 720x1280 images through ``__call__``; the kernels' launch
@@ -255,83 +260,181 @@ def pooler_inputs(name, rng, dtype, rois):
     return pyr, levels, grid, out_hw, n_large, n_full
 
 
+def _max_err(got, ref) -> float:
+    return (got.float() - ref.float()).abs().max().item() if ref.numel() else 0.0
+
+
+def _tolerance(ref, dtype, exact_tol):
+    """f32/uint8: the kernel repeats the plain version's arithmetic in the
+    same order (no FMA contraction), so ``exact_tol`` is never used up (the
+    runs read 0); bf16: both round one f32 accumulator, so one bf16 ulp."""
+    if dtype != torch.bfloat16:
+        return exact_tol
+    return 2.0 ** -7 * max(1.0, ref.float().abs().max().item() if ref.numel() else 0.0)
+
+
+def k1_case(label, pyr, rois, levels, grid, out_hw, timed=True):
+    from glass_tpu_torch.ops import roi_align_rotated as ra
+
+    launch = lambda: ra.roi_align_rotated_packed(pyr.flat, pyr.meta, rois, levels, grid, out_hw)  # noqa: E731
+    got = launch()
+    ref = ra.roi_align_rotated_packed_plain(pyr.flat, pyr.meta, rois, levels, grid, out_hw)
+    torch.cuda.synchronize()
+    dtype = pyr.flat.dtype
+    err, tol = _max_err(got, ref), _tolerance(ref, dtype, 1e-4)
+    row = dict(pooler=label, dtype=str(dtype).split(".")[1], err=err, tol=tol)
+    if timed and rois.shape[0]:
+        elt, c = pyr.flat.element_size(), pyr.flat.shape[1]
+        samples = int((grid[:, 0] * grid[:, 1]).sum()) * out_hw[0] * out_hw[1]
+        nbytes = (touched_rows(pyr.meta, rois, levels, grid, out_hw) * c * elt
+                  + rois.shape[0] * out_hw[0] * out_hw[1] * c * elt + rois.shape[0] * 7 * 4)
+        b_ms, b_by = bound(nbytes, samples * c * 8)
+        row.update(ms=kernel_ms(launch), call_ms=time_ms(launch, 50),
+                   plain_ms=time_ms(lambda: ra.roi_align_rotated_packed_plain(
+                       pyr.flat, pyr.meta, rois, levels, grid, out_hw), 3, 1),
+                   bound_ms=b_ms, bound_by=b_by)
+        log(f"K1 {label:16s} {out_hw} {row['dtype']:8s} R={rois.shape[0]:3d} max|err| {err:.3g} (tol {tol:.3g}) "
+            f"kernel {row['ms']:.4f} ms (wrapper call {row['call_ms']:.4f} ms) plain {row['plain_ms']:.3f} ms "
+            f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / row['ms']:.1f}% of it")
+    else:
+        log(f"K1 {label:16s} {out_hw} {row['dtype']:8s} R={rois.shape[0]:3d} max|err| {err:.3g} (tol {tol:.3g})")
+    if not err <= tol:
+        raise AssertionError(f"K1 {label} {dtype}: max|err| {err} > {tol}")
+    return row
+
+
 def phase_k1(rng, rois_np):
+    """The three poolers at their main-path shapes, then the edge cases of
+    the kernel's work split: no roi, one roi, every roi on the full 4x4
+    grid (16 samples a bin), a 6x6 grid (36 samples, more than a warp's
+    32-entry table), and C of one 16-byte vector."""
     from glass_tpu_torch.ops import roi_align_rotated as ra
 
     rois = torch.from_numpy(rois_np).cuda()
-    rows = []
+    rows, edge = [], []
     for name, *_ in POOLERS:
         for dtype in (torch.float32, torch.bfloat16):
             pyr, levels, grid, out_hw, n_large, n_full = pooler_inputs(name, rng, dtype, rois)
-            got = ra.roi_align_rotated_packed(pyr.flat, pyr.meta, rois, levels, grid, out_hw)
-            ref = ra.roi_align_rotated_packed_plain(pyr.flat, pyr.meta, rois, levels, grid, out_hw)
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            # f32: same arithmetic in the same order (no FMA contraction);
-            # bf16: both round one f32 accumulator, so at most one bf16 ulp.
-            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * max(1.0, ref.float().abs().max().item())
-            launch = lambda: ra.roi_align_rotated_packed(pyr.flat, pyr.meta, rois, levels, grid, out_hw)  # noqa: E731
-            ms = kernel_ms(launch)
-            call = time_ms(launch, 50)
-            plain = time_ms(lambda: ra.roi_align_rotated_packed_plain(pyr.flat, pyr.meta, rois, levels, grid, out_hw), 3, 1)
-            elt = pyr.flat.element_size()
-            c = pyr.flat.shape[1]
-            samples = int((grid[:, 0] * grid[:, 1]).sum()) * out_hw[0] * out_hw[1]
-            nbytes = (touched_rows(pyr.meta, rois, levels, grid, out_hw) * c * elt
-                      + rois.shape[0] * out_hw[0] * out_hw[1] * c * elt + rois.shape[0] * 7 * 4)
-            b_ms, b_by = bound(nbytes, samples * c * 8)
-            rows.append(dict(pooler=name, dtype=str(dtype).split(".")[1], err=err, tol=tol, ms=ms,
-                             call_ms=call, plain_ms=plain, bound_ms=b_ms, bound_by=b_by))
-            log(f"K1 {name:10s} {out_hw} {rows[-1]['dtype']:8s} large rois {n_large:3d} "
-                f"(budget 16, {n_full:2d} on the full grid) "
-                f"max|err| {err:.3g} (tol {tol:.3g}) kernel {ms:.4f} ms (wrapper call {call:.4f} ms) "
-                f"plain {plain:.3f} ms bound {b_ms:.4f} ms ({b_by})")
-            if not err <= tol:
-                raise AssertionError(f"K1 {name} {dtype}: max|err| {err} > {tol}")
-    return rows
+            log(f"K1 {name}: large rois {n_large} (budget 16, {n_full} on the full grid)")
+            rows.append(k1_case(name, pyr, rois, levels, grid, out_hw))
+    rng = np.random.RandomState(1)  # the edge cases draw apart from phase 3's inputs
+    for dtype in (torch.float32, torch.bfloat16):
+        pyr, levels, grid, out_hw, _, _ = pooler_inputs("mask", rng, dtype, rois)
+        for n in (0, 1):
+            edge.append(k1_case(f"mask R={n}", pyr, rois[:n], levels[:n], grid[:n], out_hw, timed=False))
+        full = ra.fixed_grid(rois.shape[0], 4, "cuda")
+        edge.append(k1_case("mask full grid", pyr, rois, levels, full, out_hw))
+        edge.append(k1_case("mask 6x6 grid", pyr, rois, levels, ra.fixed_grid(rois.shape[0], 6, "cuda"),
+                            out_hw, timed=False))
+        narrow = torch.from_numpy(rng.randn(BUCKET_HW[0] // 4, BUCKET_HW[1] // 4, ra.vector_width(dtype))
+                                  .astype(np.float32)).cuda().to(dtype)
+        npyr = ra.pack_pyramid([narrow], [0.25])
+        zeros = torch.zeros((rois.shape[0],), dtype=torch.int32, device="cuda")
+        edge.append(k1_case(f"C={npyr.flat.shape[1]} recognizer", npyr, rois, zeros,
+                            ra.fixed_grid(rois.shape[0], 2, "cuda"), (8, 32), timed=False))
+    return rows, edge
 
 
-def phase_k2(rng, rois_np):
+def k2_sample_grid(rois, h, w, out_hw):
+    """grid_sample's normalized (x, y) of K2's sampling-ratio-1 points (one
+    sample per output pixel at the bin centre), (1, R * OH, OW, 2)."""
+    oh, ow = out_hw
+    cx, cy = rois[:, 0] - 0.5, rois[:, 1] - 0.5
+    rw, rh = rois[:, 2], rois[:, 3]
+    th = rois[:, 4] * math.pi / 180.0
+    c, s = torch.cos(th)[:, None, None], torch.sin(th)[:, None, None]
+    i = torch.arange(oh, device=rois.device, dtype=torch.float32)
+    j = torch.arange(ow, device=rois.device, dtype=torch.float32)
+    yy = (-rh[:, None] / 2.0 + (i[None] + 0.5) * (rh / oh)[:, None])[:, :, None]
+    xx = (-rw[:, None] / 2.0 + (j[None] + 0.5) * (rw / ow)[:, None])[:, None, :]
+    y = (yy * c - xx * s) + cy[:, None, None]
+    x = (yy * s + xx * c) + cx[:, None, None]
+    g = torch.stack([(2.0 * x + 1.0) / w - 1.0, (2.0 * y + 1.0) / h - 1.0], -1)
+    return g.reshape(1, -1, ow, 2)
+
+
+def k2_yardstick(image, rois):
+    """Device time of torch.nn.functional.grid_sample (bilinear, zeros,
+    align_corners=False) on the sampling-ratio-1 points of K2, in the
+    image's dtype or in f32 where that is refused.  Its border rule is not
+    detectron2's: a yardstick of time only, never called by the port."""
+    import torch.nn.functional as F
+
+    h, w, _ = image.shape
+    for dtype in (image.dtype, torch.float32):
+        inp = image.permute(2, 0, 1)[None].contiguous().to(dtype)
+        g = k2_sample_grid(rois, h, w, (128, 128)).to(dtype)
+        try:
+            F.grid_sample(inp, g, mode="bilinear", padding_mode="zeros", align_corners=False)
+        except RuntimeError as e:
+            log(f"grid_sample refuses {dtype}: {e}")
+            continue
+        ms = kernel_ms(lambda: F.grid_sample(inp, g, mode="bilinear", padding_mode="zeros",
+                                             align_corners=False))
+        log(f"K2 yardstick grid_sample ({dtype}, {rois.shape[0]} x 128 x 128 points): {ms:.4f} ms")
+        return ms
+    raise AssertionError("grid_sample ran in no dtype")
+
+
+def k2_case(label, image, rois, out_hw, sr, normalize, std, timed=True):
     from glass_tpu_torch.ops import crop as cr
     from glass_tpu_torch.ops.roi_align_rotated import adaptive_grid, fixed_grid
 
+    h, w = image.shape[:2]
+    launch = lambda: cr.crop_rois(image, rois, out_hw, sr, 2, normalize)  # noqa: E731
+    got = launch()
+    ref = cr.crop_rois_plain(image, rois, out_hw, sr, 2, normalize)
+    torch.cuda.synchronize()
+    err = _max_err(got, ref)
+    tol = _tolerance(ref, image.dtype, 1e-4 * 255.0 / float(std.min()) if normalize else 1e-4)
+    row = dict(input=label, sr=sr, err=err, tol=tol)
+    if timed and rois.shape[0]:
+        grid = fixed_grid(rois.shape[0], sr, "cuda") if sr > 0 else adaptive_grid(rois[:, 3], rois[:, 2], out_hw, 2)
+        meta = torch.tensor([[1.0, h, w, 0.0]], device="cuda")
+        levels = torch.zeros((rois.shape[0],), dtype=torch.int32, device="cuda")
+        samples = int((grid[:, 0] * grid[:, 1]).sum()) * out_hw[0] * out_hw[1]
+        nbytes = (touched_rows(meta, rois, levels, grid, out_hw) * 3 * image.element_size()
+                  + got.numel() * got.element_size() + rois.numel() * 4)
+        b_ms, b_by = bound(nbytes, samples * 3 * 8)
+        row.update(ms=kernel_ms(launch), call_ms=time_ms(launch, 50),
+                   plain_ms=time_ms(lambda: cr.crop_rois_plain(image, rois, out_hw, sr, 2, normalize), 3, 1),
+                   bound_ms=b_ms, bound_by=b_by)
+        log(f"K2 {label:14s} {out_hw} sr={sr} R={rois.shape[0]:3d} max|err| {err:.3g} (tol {tol:.3g}) "
+            f"kernel {row['ms']:.4f} ms (wrapper call {row['call_ms']:.4f} ms) plain {row['plain_ms']:.3f} ms "
+            f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / row['ms']:.1f}% of it")
+    else:
+        log(f"K2 {label:14s} {out_hw} sr={sr} R={rois.shape[0]:3d} max|err| {err:.3g} (tol {tol:.3g})")
+    if not err <= tol:
+        raise AssertionError(f"K2 {label} {out_hw} sr={sr}: max|err| {err} > {tol}")
+    return row
+
+
+def phase_k2(rng, rois_np):
+    """uint8 with the fold, f32 and bf16 at sampling ratios 1, 2 and 0, then
+    the edge cases of the work split: no roi, one roi, a ragged 32x100
+    output (fewer columns than a block has threads, rows no multiple of a
+    block's band) and a one-pixel-wide image (both taps of an image row are
+    one pixel)."""
     h, w = BUCKET_HW
     rois = torch.from_numpy(rois_np).cuda()
     raw = torch.from_numpy(rng.randint(0, 256, (h, w, 3)).astype(np.uint8)).cuda()
     mean = torch.tensor([103.53, 116.28, 123.675], device="cuda")
     std = torch.tensor([57.375, 57.12, 58.395], device="cuda")
     norm32 = (raw.float() - mean) / std
-    rows = []
-    for label, image, normalize in (("uint8+fold", raw, (mean, std)),
-                                    ("float32", norm32, None),
-                                    ("bfloat16", norm32.to(torch.bfloat16), None)):
+    rows, edge = [], []
+    images = (("uint8+fold", raw, (mean, std)), ("float32", norm32, None),
+              ("bfloat16", norm32.to(torch.bfloat16), None))
+    column = rois.clone()
+    column[:, 0] = 0.5
+    for label, image, normalize in images:
         for sr in (1, 2, 0):
-            got = cr.crop_rois(image, rois, (128, 128), sr, 2, normalize)
-            ref = cr.crop_rois_plain(image, rois, (128, 128), sr, 2, normalize)
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            if image.dtype == torch.bfloat16:
-                tol = 2.0 ** -7 * max(1.0, ref.float().abs().max().item())
-            else:
-                tol = 1e-4 * 255.0 / float(std.min()) if normalize else 1e-4
-            launch = lambda: cr.crop_rois(image, rois, (128, 128), sr, 2, normalize)  # noqa: E731
-            ms = kernel_ms(launch)
-            call = time_ms(launch, 50)
-            plain = time_ms(lambda: cr.crop_rois_plain(image, rois, (128, 128), sr, 2, normalize), 3, 1)
-            grid = fixed_grid(rois.shape[0], sr, "cuda") if sr > 0 else adaptive_grid(rois[:, 3], rois[:, 2], (128, 128), 2)
-            meta = torch.tensor([[1.0, h, w, 0.0]], device="cuda")
-            levels = torch.zeros((rois.shape[0],), dtype=torch.int32, device="cuda")
-            samples = int((grid[:, 0] * grid[:, 1]).sum()) * 128 * 128
-            nbytes = (touched_rows(meta, rois, levels, grid, (128, 128)) * 3 * image.element_size()
-                      + got.numel() * got.element_size() + rois.numel() * 4)
-            b_ms, b_by = bound(nbytes, samples * 3 * 8)
-            rows.append(dict(input=label, sr=sr, err=err, tol=tol, ms=ms, call_ms=call,
-                             plain_ms=plain, bound_ms=b_ms, bound_by=b_by))
-            log(f"K2 {label:10s} sr={sr} max|err| {err:.3g} (tol {tol:.3g}) kernel {ms:.4f} ms "
-                f"(wrapper call {call:.4f} ms) plain {plain:.3f} ms bound {b_ms:.4f} ms ({b_by})")
-            if not err <= tol:
-                raise AssertionError(f"K2 {label} sr={sr}: max|err| {err} > {tol}")
-    return rows
+            rows.append(k2_case(label, image, rois, (128, 128), sr, normalize, std))
+        for n in (0, 1):
+            edge.append(k2_case(label, image, rois[:n], (128, 128), 0, normalize, std, timed=False))
+        edge.append(k2_case(label, image, rois, (32, 100), 2, normalize, std, timed=False))
+        edge.append(k2_case(f"{label} W=1", image[:, :1].contiguous(), column, (16, 8), 2, normalize, std,
+                            timed=False))
+    return rows, edge, k2_yardstick(images[2][1], rois)
 
 
 def icdar15_cfg(dtype: str):
@@ -679,9 +782,9 @@ def main():
     if 1 in phases:
         phase_build(args.out)
     if 2 in phases:
-        k1_rows = phase_k1(rng, rois_np)
+        k1_rows, k1_edge = phase_k1(rng, rois_np)
     if 3 in phases:
-        k2_rows = phase_k2(rng, rois_np)
+        k2_rows, k2_edge, k2_lib_ms = phase_k2(rng, rois_np)
     if 4 in phases or 5 in phases:
         images = [synthetic_image(np.random.RandomState(100 + i), 720, 1280) for i in range(N_IMAGES)]
         state_dict = seeded_weights(images[0])
@@ -698,13 +801,14 @@ def main():
         entry = kernel_entry("roi_align_rotated", "glass_tpu_torch/csrc/roi_align_rotated.cu",
                              "glass_tpu/ops/pallas_roi_align.py:33",
                              launches.get("roi_align_rotated", 0), rows)
-        entry["max_abs_err"] = max(r["err"] for r in k1_rows)
+        entry["max_abs_err"] = max(r["err"] for r in k1_rows + k1_edge)
         kernels.append(entry)
     if k2_rows:
         rows = [r for r in k2_rows if r["input"] == "bfloat16" and r["sr"] == 1]
         entry = kernel_entry("crop_rois", "glass_tpu_torch/csrc/crop_rois.cu",
                              "glass_tpu/ops/pallas_crop.py:77", launches.get("crop_rois", 0), rows)
-        entry["max_abs_err"] = max(r["err"] for r in k2_rows)
+        entry["max_abs_err"] = max(r["err"] for r in k2_rows + k2_edge)
+        entry["library_ms"] = k2_lib_ms
         kernels.append(entry)
     log(f"kernel times are per image at the main-path shapes (bfloat16; K1 summed over its "
         f"three poolers), launches over {per_image} main-path images, on {card}")

@@ -14,7 +14,8 @@ writing ``(R, OH, OW, 3)`` crops.
   ``ceil(extent / out)`` per axis, capped at ``max_sampling_ratio``.
 
 On a CUDA tensor the wrapper launches ``csrc/crop_rois.cu`` or raises; on a
-CPU tensor it runs the plain version.
+CPU tensor it runs the plain version.  The kernel takes an image of at
+least two pixels whose start is aligned to two elements.
 """
 
 from __future__ import annotations
@@ -75,11 +76,15 @@ def crop_rois(image, rois, out_hw=(128, 128), sampling_ratio=1,
     _check(image, rois, normalize)
     if image.device.type == "cpu":
         return crop_rois_plain(image, rois, out_hw, sampling_ratio, max_sampling_ratio, normalize)
-    if image.device.type != "cuda":
-        raise ValueError(f"unsupported device {image.device}")
     oh, ow = (int(v) for v in out_hw)
     h, w, _ = image.shape
+    if h * w < 2:
+        raise ValueError("the kernel needs an image of at least two pixels")
+    if image.device.type != "cuda":
+        raise ValueError(f"unsupported device {image.device}")
     image = image.contiguous()
+    if image.data_ptr() % (2 * image.element_size()):
+        raise ValueError("the kernel needs an image aligned to two elements")
     rois = rois.to(torch.float32).contiguous()
     dev = image.device
     mean_ptr = std_ptr = None  # the kernel reads mean/std only under the fold
@@ -89,6 +94,8 @@ def crop_rois(image, rois, out_hw=(128, 128), sampling_ratio=1,
         mean_ptr, std_ptr = mean.data_ptr(), std.data_ptr()
     r = rois.shape[0]
     out = torch.empty((r, oh, ow, 3), dtype=_output_dtype(image), device=dev)
+    if out.numel() == 0:
+        return out
     lib = _load()
     status = lib.glass_crop_rois(
         image.data_ptr(), _DTYPES[image.dtype], h, w, rois.data_ptr(), r,

@@ -25,7 +25,9 @@ passes that ``roi_align_rotated_adaptive`` documents.
 
 On a CUDA tensor the wrapper launches the kernel (``csrc/
 roi_align_rotated.cu``) or raises; on a CPU tensor it runs the plain
-version, which repeats the kernel's arithmetic in the same order.
+version, which repeats the kernel's arithmetic in the same order.  The
+kernel takes C a multiple of its 16-byte vector (4 f32, 8 bf16 channels)
+and 16-byte aligned features; the wrapper raises on anything else.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from . import _cuda
 
 KERNEL = "roi_align_rotated"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VECTOR_BYTES = 16
 
 
 def _grid_pair(g):
@@ -123,6 +126,17 @@ def _check(flat, meta, rois, levels, grid):
         raise ValueError(f"all inputs must lie on one device, got {devs}")
 
 
+def vector_width(dtype: torch.dtype) -> int:
+    """Channels one 16-byte load of the kernel moves."""
+    return VECTOR_BYTES // torch.empty((), dtype=dtype).element_size()
+
+
+def _check_channels(flat: torch.Tensor) -> None:
+    vec = vector_width(flat.dtype)
+    if flat.shape[1] % vec:
+        raise ValueError(f"the kernel needs C a multiple of {vec} for {flat.dtype}, got C={flat.shape[1]}")
+
+
 def roi_align_rotated_packed(
     flat: torch.Tensor,
     meta: torch.Tensor,
@@ -143,14 +157,19 @@ def roi_align_rotated_packed(
     _check(flat, meta, rois, levels, grid)
     if flat.device.type == "cpu":
         return roi_align_rotated_packed_plain(flat, meta, rois, levels, grid, output_size)
+    _check_channels(flat)
     if flat.device.type != "cuda":
         raise ValueError(f"unsupported device {flat.device}")
     ph, pw = (int(v) for v in output_size)
     flat, meta, rois, levels, grid = (
         t.contiguous() for t in (flat, meta, rois, levels, grid)
     )
+    if flat.data_ptr() % VECTOR_BYTES:
+        raise ValueError("the kernel needs 16-byte aligned features")
     r, c = rois.shape[0], flat.shape[1]
     out = torch.empty((r, ph, pw, c), dtype=flat.dtype, device=flat.device)
+    if r == 0:
+        return out
     lib = _load()
     status = lib.glass_roi_align_rotated(
         flat.data_ptr(), _DTYPES[flat.dtype], c, rois.data_ptr(), meta.data_ptr(),
