@@ -25,9 +25,29 @@ Phases:
      counters must rise during this phase.
   5. whole-path check: one full-size image through the port at float32
      (no TF32) on the card and on the CPU (plain versions), same weights.
+  6. the evaluation path: ``python -m glass_tpu_torch.eval`` run in-process
+     (``glass_tpu_torch.eval.main``) on the ICDAR15 eval configuration at
+     bfloat16, with phase 4's seeded weights saved as a .pth, over a
+     synthetic COCO-style set written into ``--out`` (8 scenes of 720x1280
+     with words drawn from tests/test_learning_synthetic.py's glyphs, scaled
+     up), ``--batch-size 4``, post-processing thresholds loosened so that a
+     random model's words survive; once with the host merge and once with
+     POST_PROCESSING.ON_DEVICE.  Prints img/s and det/E2E P/R/H of each run,
+     the K1/K2 launches of each run (exactly 3 and 1 per image, or it fails),
+     which polygon path the evaluator took, the host syncs per image
+     (``torch.cuda.set_sync_debug_mode("warn")``) and the split of a
+     pipelined ``eval_batch_call`` between model, fetch and host
+     post-processing.  Checks that ``eval_batch_call`` at batch 4 with
+     ASYNC_FETCH equals batch 1 bit for bit, and that the on-device merge on
+     the card agrees with the same code on the CPU (each iteration from the
+     CPU's state: the same survivors, boxes within 1e-3 px and 1e-3 degrees).
 
 Prints, on the last two lines, a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
+
+Rehearse phase 6 on the CPU (no card) at a small size with
+``phase_eval(state_dict, out_dir, device="cpu", n_images=2, hw=(96, 128),
+opts=[...small bucket...])``; it takes ``device`` for that alone.
 """
 
 from __future__ import annotations
@@ -40,6 +60,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -434,7 +455,11 @@ def phase_k2(rng, rois_np):
         edge.append(k2_case(label, image, rois, (32, 100), 2, normalize, std, timed=False))
         edge.append(k2_case(f"{label} W=1", image[:, :1].contiguous(), column, (16, 8), 2, normalize, std,
                             timed=False))
-    return rows, edge, k2_yardstick(images[2][1], rois)
+    lib_ms = {label: k2_yardstick(image, rois) for label, image, _ in images[1:]}
+    for row in rows:
+        if row["sr"] == 1 and row["input"] in lib_ms:
+            row["library_ms"] = lib_ms[row["input"]]
+    return rows, edge, lib_ms["bfloat16"]
 
 
 def icdar15_cfg(dtype: str):
@@ -740,6 +765,326 @@ def phase_whole(image, state_dict):
         raise AssertionError(f"whole path differs beyond tolerance in {failed}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the evaluation path
+# ---------------------------------------------------------------------------
+
+# 7x5 glyphs of tests/test_learning_synthetic.py
+GLYPHS = {
+    "a": ["11111", "10001", "10001", "11111", "10001", "10001", "10001"],
+    "b": ["11110", "10001", "11110", "10001", "10001", "10001", "11110"],
+    "c": ["01110", "10000", "10000", "10000", "10000", "10000", "01110"],
+    "d": ["00100", "00100", "01110", "00100", "00100", "00100", "00100"],
+    "e": ["10001", "01010", "00100", "00100", "00100", "01010", "10001"],
+    "f": ["00100", "01110", "10101", "00100", "00100", "00100", "00100"],
+}
+GLYPH_WORDS = ["ace", "bdf", "fab", "ecd", "bad", "cafe", "face", "deaf"]
+# Thresholds loosened so that a random model's words survive (as
+# tests/test_torch_slice.py does).
+LOOSE_OPTS = ["POST_PROCESSING.VALID_CONFIDENCE", "0.05", "POST_PROCESSING.DETECT_THRESHOLD", "0.1",
+              "POST_PROCESSING.TEXT_THRESHOLD", "0.0"]
+MERGE_PX_TOL = MERGE_DEG_TOL = 1e-3
+
+
+def render_word(word: str, scale: int) -> np.ndarray:
+    import cv2
+
+    img = np.zeros((7 * scale, 6 * len(word) * scale), np.uint8)
+    for i, ch in enumerate(word):
+        g = np.array([[int(c) for c in row] for row in GLYPHS[ch]], np.uint8)
+        g = cv2.resize(g * 255, (5 * scale, 7 * scale), interpolation=cv2.INTER_NEAREST)
+        img[:, i * 6 * scale: i * 6 * scale + 5 * scale] = g
+    return img
+
+
+def write_eval_set(root: str, n_images: int, hw, seed: int = 0) -> str:
+    """A COCO-style set (``<root>/ds/synth_test/annotations.json`` and its
+    PNGs) of words on noisy backgrounds, one text line per band of the
+    image; returns the dataset yaml."""
+    import cv2
+
+    h, w = hw
+    rng = np.random.RandomState(seed)
+    scale = max(1, h // 100)
+    d = os.path.join(root, "ds", "synth_test")
+    os.makedirs(d, exist_ok=True)
+    images, anns = [], []
+    for i in range(n_images):
+        img = (rng.randint(30, 70, (h, w, 3))).astype(np.uint8)
+        band = 7 * scale + 12 * scale
+        for y0 in range(4 * scale, h - band, band):
+            x0 = int(rng.randint(3 * scale, 20 * scale))
+            while True:
+                word = GLYPH_WORDS[rng.randint(len(GLYPH_WORDS))]
+                glyph = render_word(word, scale)
+                gh, gw = glyph.shape
+                pad = max(2, scale)
+                if x0 + gw + pad >= w:
+                    break
+                img[y0 - pad: y0 + gh + pad, x0 - pad: x0 + gw + pad] = 0
+                img[y0: y0 + gh, x0: x0 + gw] = glyph[..., None]
+                quad = [[x0 - pad, y0 - pad], [x0 + gw + pad, y0 - pad], [x0 + gw + pad, y0 + gh + pad],
+                        [x0 - pad, y0 + gh + pad]]
+                anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": 1,
+                             "bbox": [x0 - pad, y0 - pad, gw + 2 * pad, gh + 2 * pad], "rotated_box": quad,
+                             "segmentation": [[c for pt in quad for c in pt]], "rec": word, "angle": 0,
+                             "orientation": 0, "area": (gw + 2 * pad) * (gh + 2 * pad), "iscrowd": 0})
+                x0 += gw + int(rng.randint(6 * scale, 40 * scale))
+        cv2.imwrite(os.path.join(d, f"img_{i}.png"), img)
+        images.append({"id": i + 1, "file_name": f"img_{i}.png", "height": h, "width": w})
+    with open(os.path.join(d, "annotations.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": [{"id": 1, "name": "word"}]}, f)
+    path = os.path.join(root, "datasets.yaml")
+    with open(path, "w") as f:
+        f.write(f"ROOT: {os.path.join(root, 'ds')}\nDATASETS: []\nVAL_DATASETS:\n  - synth_test\n")
+    return path
+
+
+def same_predictions(a, b) -> list:
+    """Fields of two post-processed prediction lists that are not equal bit
+    for bit."""
+    bad = []
+    for n, (x, y) in enumerate(zip(a, b)):
+        if x.image_size != y.image_size or sorted(x.get_fields()) != sorted(y.get_fields()):
+            bad.append(f"image {n}: fields")
+            continue
+        for k, v in x.get_fields().items():
+            w = y.get(k)
+            if isinstance(v, list):
+                ok = len(v) == len(w) and all(np.array_equal(p, q) for p, q in zip(v, w))
+            else:
+                ok = np.array_equal(np.asarray(v), np.asarray(w))
+            if not ok:
+                bad.append(f"image {n}: {k}")
+    return bad + (["lengths"] if len(a) != len(b) else [])
+
+
+class StageClock:
+    """Wall time of the runner's batch stages, summed per stage: the model
+    (``dispatch_batch``: upload, the per-image programs, the start of the
+    fetch), the fetch (``collect_batch``: the wait for the copy, unpacking)
+    and host post-processing (``_postprocess_chunk``), which holds
+    ``detector_postprocess`` (rescale, mask polygons) and the merge
+    (``merge_intersecting_boxes``, host or device); the rest of it is the
+    filters, polygons and text decoding."""
+
+    def __init__(self):
+        from glass_tpu_torch.inference import GlassRunner
+        from glass_tpu_torch.postprocess import PostProcessorRotatedBoxes
+
+        self.spans = ((GlassRunner, "dispatch_batch", "model"), (GlassRunner, "collect_batch", "fetch"),
+                      (GlassRunner, "_postprocess_chunk", "host"),
+                      (GlassRunner, "_model_postprocess", "host: detector_postprocess"),
+                      (PostProcessorRotatedBoxes, "merge_intersecting_boxes", "host: merge"))
+        self.ms, self.saved = collections.Counter(), []
+
+    def __enter__(self):
+        for cls, name, stage in self.spans:
+            fn = getattr(cls, name)
+            self.saved.append((cls, name, fn))
+
+            def timed(*a, _fn=fn, _stage=stage, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    self.ms[_stage] += (time.perf_counter() - t0) * 1e3
+
+            setattr(cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.saved:
+            setattr(cls, name, fn)
+
+
+def count_syncs(fn, device) -> tuple:
+    """(syncs, {source line: count}) of the host syncs ``fn`` makes, from
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    if device.type != "cuda":
+        fn()
+        return 0, {}
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    where = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in syncs)
+    return len(syncs), dict(where.most_common(8))
+
+
+class MergeInputs:
+    """Records the padded sets the post-processor hands to the on-device
+    merge (``device_merge.merge_intersecting_boxes_device``), as numpy."""
+
+    def __enter__(self):
+        from glass_tpu_torch.postprocess import device_merge
+
+        self.module, self.fn, self.sets = device_merge, device_merge.merge_intersecting_boxes_device, []
+
+        def recorded(boxes, scores, valid, **kw):
+            self.sets.append(tuple(t.cpu().numpy() for t in (boxes, scores, valid)))
+            return self.fn(boxes, scores, valid, **kw)
+
+        device_merge.merge_intersecting_boxes_device = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module.merge_intersecting_boxes_device = self.fn
+
+
+def check_merge_card_vs_cpu(runner, sets, device):
+    """The on-device merge on ``device`` against the same code on the CPU,
+    one iteration at a time from the CPU's state (so that the two sides'
+    rounding does not compound): the same survivors and boxes within 1e-3
+    px / 1e-3 degrees at every step.  A set with a pair whose IoA lies
+    within 1e-5 of the merge gate is reported and not held (it may merge on
+    one side only).  The whole fixpoint's largest difference is reported."""
+    from glass_tpu_torch.ops.iou_rotated import pairwise_ioa_rotated
+    from glass_tpu_torch.postprocess.device_merge import merge_intersecting_boxes_device
+
+    pp = runner.post_processor
+    kw = dict(ioa_threshold=pp.merge_ioa_thresh, height_ratio_thresh=pp.pairs_height_ratio_thresh,
+              max_angle_diff=pp.max_angle_diff, valid_score=pp.valid_score)
+
+    def both(boxes, scores, valid, **extra):
+        out = []
+        for dev in (device, torch.device("cpu")):
+            b, v = merge_intersecting_boxes_device(torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev),
+                                                   torch.from_numpy(valid).to(dev), **kw, **extra)
+            out.append((b.cpu().numpy(), v.cpu().numpy()))
+        return out
+
+    def box_diff(a, b):
+        d = np.abs(a[:, :4] - b[:, :4]).max(1, initial=0.0)
+        return np.maximum(d, np.abs((a[:, 4] - b[:, 4] + 180.0) % 360.0 - 180.0))
+
+    worst, worst_fix, knife, steps, merged, failed = 0.0, 0.0, 0, 0, 0, []
+    for n, (boxes, scores, valid) in enumerate(sets):
+        ioa = pairwise_ioa_rotated(torch.from_numpy(boxes), torch.from_numpy(boxes)).numpy()
+        pairs = valid[:, None] & valid[None, :] & ~np.eye(len(boxes), dtype=bool)
+        if (np.abs(ioa - kw["ioa_threshold"])[pairs] < 1e-5).any():
+            knife += 1
+            continue
+        (gb, gv), (cb, cv) = both(boxes, scores, valid)
+        worst_fix = max(worst_fix, float(box_diff(gb[cv], cb[cv]).max(initial=0.0)) if (gv == cv).all() else np.inf)
+        b, v = boxes, valid
+        for _ in range(8):
+            (gb, gv), (cb, cv) = both(b, scores, v, max_iters=1)
+            steps += 1
+            d = float(box_diff(gb[cv], cb[cv]).max(initial=0.0))
+            worst = max(worst, d)
+            if not (gv == cv).all() or d > MERGE_PX_TOL:
+                failed.append(f"image {n}: survivors equal {bool((gv == cv).all())}, max diff {d:.3g}")
+                break
+            if np.array_equal(cb, b) and np.array_equal(cv, v):
+                break
+            merged += int(v.sum() - cv.sum())
+            b, v = cb, cv
+    log(f"eval merge card vs CPU: {len(sets) - knife} sets held ({knife} with an IoA within 1e-5 of the gate), "
+        f"{steps} iterations, {merged} boxes merged away; max step diff {worst:.3g} (tol {MERGE_PX_TOL} px / "
+        f"{MERGE_DEG_TOL} deg); whole fixpoint max diff {worst_fix:.3g} (reported, not held)")
+    if failed:
+        raise AssertionError(f"on-device merge: card and CPU differ: {failed}")
+    return worst
+
+
+def phase_eval(state_dict, out_dir, device="cuda", n_images=N_IMAGES, hw=(720, 1280), opts=()):
+    """The evaluation path through ``glass_tpu_torch.eval.main``, host merge
+    then on-device merge, and the checks of the batched runner."""
+    device = torch.device(device)
+    root = os.path.join(out_dir, "eval")
+    try:
+        return _phase_eval(state_dict, root, device, n_images, hw, opts)
+    finally:  # the images and the .pth are large; the results stay
+        import shutil
+
+        shutil.rmtree(os.path.join(root, "ds"), ignore_errors=True)
+        for name in ("model.pth",):
+            if os.path.exists(os.path.join(root, name)):
+                os.remove(os.path.join(root, name))
+
+
+def _phase_eval(state_dict, root, device, n_images, hw, opts):
+    import cv2
+
+    from glass_tpu_torch import eval as port_eval
+    from glass_tpu_torch.inference import GlassRunner
+    from glass_tpu_torch.native import polyclip_path
+    from glass_tpu_torch.ops import _cuda
+
+    ds_yaml = write_eval_set(root, n_images, hw)
+    pth = os.path.join(root, "model.pth")
+    torch.save(state_dict, pth)
+    opts = ["TPU.COMPUTE_DTYPE", "bfloat16", *LOOSE_OPTS, *opts]
+    common = ["--config", ICDAR15, "--datasets", ds_yaml, "--model", pth, "--device", str(device),
+              "--batch-size", "4"]
+    port_eval.main(common + ["--output", os.path.join(root, "warmup"), "--max-images", "4", *opts])
+    card = card_line() if device.type == "cuda" else "CPU"
+    runs = {}
+    for merge in ("host", "device"):
+        bench = os.path.join(root, f"bench_{merge}.jsonl")
+        if os.path.exists(bench):
+            os.remove(bench)
+        run_opts = [*opts, "POST_PROCESSING.ON_DEVICE", str(merge == "device")]
+        _cuda.LAUNCHES.clear()
+        results = port_eval.main(common + ["--output", os.path.join(root, merge), "--bench-log", bench, *run_opts])
+        launches = dict(_cuda.LAUNCHES)
+        with open(bench) as f:
+            last = [json.loads(line) for line in f][-1]
+        res = results["synth_test"]
+        runs[merge] = dict(img_s=last["done"] / last["elapsed_s"], results=res, launches=launches)
+        prh = "; ".join(f"{k.split('_')[0].lower()} P {v['precision']:.4f} R {v['recall']:.4f} H {v['hmean']:.4f}"
+                        for k, v in res.items())
+        log(f"eval {merge} merge ({card}): {last['done']} images at batch 4 in {last['elapsed_s']:.3f} s, "
+            f"{runs[merge]['img_s']:.3f} img/s (CLI loop, image reads included); {prh}; "
+            f"K1/K2 launches {launches}")
+        if device.type == "cuda":
+            want = {"roi_align_rotated": 3 * last["done"], "crop_rois": last["done"]}
+            got = {k: launches.get(k, 0) for k in want}
+            if got != want:
+                raise AssertionError(f"eval path launches {got}, expected 3 and 1 per image {want}")
+    log(f"eval polygon path: {polyclip_path()}")
+
+    images = [cv2.imread(os.path.join(root, "ds", "synth_test", f"img_{i}.png")) for i in range(n_images)]
+    for merge in ("host", "device"):
+        cfg = port_eval.setup(port_eval.parse_args(common + ["--output", os.path.join(root, "direct"), *opts,
+                                                  "POST_PROCESSING.ON_DEVICE", str(merge == "device")]))
+        runner = GlassRunner(cfg=cfg, state_dict=state_dict, device=device)
+        runner.eval_batch_call(images[:4], batch_size=4)  # warm-up
+        with StageClock() as clock:
+            t0 = time.perf_counter()
+            b4 = runner.eval_batch_call(images, batch_size=4)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        if merge == "device":
+            with MergeInputs() as merged:
+                runner.eval_batch_call(images, batch_size=4)
+            check_merge_card_vs_cpu(runner, merged.sets, device)
+        b1 = runner.eval_batch_call(images, batch_size=1)
+        bad = same_predictions(b4, b1)
+        log(f"eval_batch_call {merge} merge ({card}): {n_images} images, batches of 4 pipelined (ASYNC_FETCH "
+            f"{bool(cfg.TPU.ASYNC_FETCH)}): {wall:.2f} ms wall, {1e3 * n_images / wall:.3f} img/s; summed per "
+            f"stage (model and fetch in the worker thread, the rest beside them): "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in clock.ms.items())
+            + f"; words per image {[len(p) for p in b4]}")
+        log(f"eval_batch_call batch 4 vs batch 1 ({merge} merge): "
+            f"{'equal bit for bit' if not bad else 'DIFFERENT: ' + ', '.join(bad[:6])}")
+        if bad:
+            raise AssertionError(f"eval_batch_call batch 4 differs from batch 1 ({merge} merge): {bad}")
+        syncs, where = count_syncs(lambda: runner.eval_batch_call(images[:4], batch_size=4), device)
+        log(f"eval host syncs ({merge} merge): {syncs} over 4 images, {syncs / 4:.1f} per image; "
+            f"most from {where}")
+        runs[merge].update(direct_img_s=1e3 * n_images / wall, stage_ms=dict(clock.ms), syncs_per_image=syncs / 4)
+    return runs
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     return {
         "name": name,
@@ -758,7 +1103,7 @@ def kernel_entry(name, source, replaces, launches, rows):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5")
+    ap.add_argument("--phases", default="1,2,3,4,5,6")
     ap.add_argument("--out", default="chip_smoke_out", help="directory for the build log and the profile table")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -785,13 +1130,15 @@ def main():
         k1_rows, k1_edge = phase_k1(rng, rois_np)
     if 3 in phases:
         k2_rows, k2_edge, k2_lib_ms = phase_k2(rng, rois_np)
-    if 4 in phases or 5 in phases:
+    if phases & {4, 5, 6}:
         images = [synthetic_image(np.random.RandomState(100 + i), 720, 1280) for i in range(N_IMAGES)]
         state_dict = seeded_weights(images[0])
         if 4 in phases:
             main = phase_main(images, state_dict, N_TIMED, args.out)
         if 5 in phases:
             phase_whole(images[0], state_dict)
+        if 6 in phases:
+            phase_eval(state_dict, args.out)
 
     kernels = []
     launches = (main or {}).get("launches", {})

@@ -1,18 +1,30 @@
-"""Single-image inference API: the ``GlassRunner`` of the port.
+"""Inference API: the ``GlassRunner`` of the port.
 
-Counterpart of ``glass_tpu/inference/runner.py`` (single-image path):
-build the model from a YAML config and a checkpoint, resize the input by the
-demo scale rule (max-side cap / min-side upscale bounded by
-``MAX_UPSCALE_RATIO``), pad it into the same ``TPU.IMAGE_BUCKETS`` as
-glass_tpu (the padded border changes features near the edge and the RPN's
-anchor mask depends on it), run the model, rescale the predictions and
-post-process them on the host.
+Counterpart of ``glass_tpu/inference/runner.py``: build the model from a
+YAML config and a checkpoint, resize the input by the demo scale rule
+(max-side cap / min-side upscale bounded by ``MAX_UPSCALE_RATIO``) or, for
+dataset evaluation, by d2's shortest-edge rule, pad it into the same
+``TPU.IMAGE_BUCKETS`` as glass_tpu (the padded border changes features near
+the edge and the RPN's anchor mask depends on it), run the model, rescale
+the predictions and post-process them on the host (or merge on the device,
+``POST_PROCESSING.ON_DEVICE``).
+
+Batched serving (``batch_call``, ``eval_batch_call``) uploads a padded
+batch in one pinned copy, runs the per-image program over its rows
+(``TPU.SERVE_BATCH_MODE="map"``: outputs equal b = 1 serving bit for bit)
+and fetches the outputs of the whole batch in one copy.  The per-image
+program reads a few values back on the host (the poolers' grid extents, the
+NMS fixpoints), so the thread that dispatches it waits on the device; with
+``TPU.ASYNC_FETCH`` a worker thread therefore runs the model and the fetch
+of the next batch while the calling thread post-processes the last one.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
 import cv2
@@ -134,6 +146,45 @@ def _unpack_masks(m: np.ndarray) -> np.ndarray:
     return m
 
 
+_NUMPY_DTYPES = {
+    torch.float32: np.float32, torch.float16: np.float16, torch.int32: np.int32,
+    torch.int64: np.int64, torch.uint8: np.uint8, torch.bool: np.bool_,
+}
+
+
+def start_fetch(out: dict, device: torch.device):
+    """Start one device-to-host copy of every output tensor: their bytes,
+    packed into one buffer on the device, go to pinned host memory in one
+    non-blocking copy (one transfer per batch, not one per tensor).
+    ``finish_fetch`` waits for it and unpacks numpy arrays."""
+    layout, parts = [], []
+    for k, v in out.items():
+        v = v.contiguous()
+        layout.append((k, _NUMPY_DTYPES[v.dtype], tuple(v.shape)))
+        parts.append(v.reshape(-1).view(torch.uint8))
+    packed = torch.cat(parts)
+    if device.type != "cuda":
+        return packed, None, layout
+    host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done, layout
+
+
+def finish_fetch(fetch) -> dict:
+    host, done, layout = fetch
+    if done is not None:
+        done.synchronize()
+    raw = host.numpy()
+    out, off = {}, 0
+    for k, dtype, shape in layout:
+        n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        out[k] = np.frombuffer(raw[off:off + n].tobytes(), dtype).reshape(shape)
+        off += n
+    return out
+
+
 class GlassRunner:
     def __init__(
         self,
@@ -149,6 +200,11 @@ class GlassRunner:
         ``state_dict``, else ``model_path``, else a random init from seed 0."""
         self.device = resolve_device(device)
         self.cfg = cfg if cfg is not None else get_cfg(config_path, opts)
+        if self.cfg.TPU.TWO_STAGE_INFERENCE:
+            raise NotImplementedError(
+                "TPU.TWO_STAGE_INFERENCE is not ported to glass_tpu_torch yet "
+                "(the inference-variants slice, ROADMAP item 10)"
+            )
         self.post_process_flag = post_process
         self.arch = GlassArch.from_config(self.cfg)
         model = GlassRCNN(self.arch)
@@ -168,7 +224,7 @@ class GlassRunner:
         self.input_format = self.cfg.INPUT.FORMAT
         assert self.input_format in ("RGB", "BGR", "GREY")
         self.codec = TextCodec.from_config(self.cfg)
-        self.post_processor = build_post_processor(self.cfg)
+        self.post_processor = build_post_processor(self.cfg, self.device)
         self.pad_multiple = self.cfg.TPU.PAD_IMAGE_TO_MULTIPLE
         self.buckets = [tuple(b) for b in self.cfg.TPU.IMAGE_BUCKETS]
         pp = self.cfg.POST_PROCESSING
@@ -230,6 +286,81 @@ class GlassRunner:
             inst.pred_rboxes = out["boxes"][valid]
         return inst
 
+    # -- batched serving --------------------------------------------------
+    def dispatch_batch(self, images: List[np.ndarray]):
+        """Upload a batch of resized images (padded to the largest of their
+        buckets) in one pinned copy, run the batched program and start the
+        fetch of its outputs.  Returns (fetch, hws); ``collect_batch``
+        finishes it."""
+        bh = max(self._pick_bucket(*im.shape[:2])[0] for im in images)
+        bw = max(self._pick_bucket(*im.shape[:2])[1] for im in images)
+        b = len(images)
+        u8 = all(im.dtype == np.uint8 for im in images)
+        host = torch.zeros((b, bh, bw, 3), dtype=torch.uint8 if u8 else torch.float32,
+                           pin_memory=self.device.type == "cuda")
+        padded = host.numpy()
+        hws = np.zeros((b, 2), np.int32)
+        for i, im in enumerate(images):
+            h, w = im.shape[:2]
+            padded[i, :h, :w] = im
+            hws[i] = (h, w)
+        with torch.inference_mode():
+            out = self.batch_model_fn()(host.to(self.device, non_blocking=True), hws)
+            return start_fetch(out, self.device), hws
+
+    def batch_model_fn(self):
+        """The batched model program, per TPU.SERVE_BATCH_MODE.  "map" runs
+        the single-image program over the rows of the uploaded batch, so its
+        outputs equal b = 1 serving bit for bit."""
+        mode = str(getattr(self.cfg.TPU, "SERVE_BATCH_MODE", "map"))
+        if mode != "map":
+            raise NotImplementedError(
+                f"TPU.SERVE_BATCH_MODE={mode!r} is not ported to glass_tpu_torch yet "
+                "(the inference-variants slice, ROADMAP item 10); use 'map'"
+            )
+        if (getattr(self.cfg.TPU, "SERVE_DATA_PARALLEL", False) and self.device.type == "cuda"
+                and torch.cuda.device_count() > 1):
+            raise NotImplementedError(
+                "TPU.SERVE_DATA_PARALLEL over more than one GPU is not ported to "
+                "glass_tpu_torch yet (the distributed slice, ROADMAP item 12)"
+            )
+        model = self.model
+
+        def batched(imgs: torch.Tensor, hws: np.ndarray) -> dict:
+            outs = [glass_inference_single(model, imgs[i], (int(hws[i, 0]), int(hws[i, 1])))
+                    for i in range(imgs.shape[0])]
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+        return batched
+
+    def run_batch_on_resized(self, images: List[np.ndarray]) -> List[Instances]:
+        """Batched inference over same-bucket resized images: raw instances
+        at each resized image's scale."""
+        if not images:
+            return []
+        return self.collect_batch(self.dispatch_batch(images))
+
+    def collect_batch(self, dispatched) -> List[Instances]:
+        """Finish the fetch of a ``dispatch_batch`` result and unpack it."""
+        fetch, hws = dispatched
+        out = finish_fetch(fetch)
+        results = []
+        for i in range(len(hws)):
+            valid = out["valid"][i]
+            inst = Instances(
+                tuple(hws[i]),
+                pred_boxes=out["boxes"][i][valid],
+                scores=out["scores"][i][valid],
+                pred_classes=out["classes"][i][valid],
+                orientations=out["orientations"][i][valid],
+            )
+            _set_text_fields(inst, {k: v[i] for k, v in out.items()}, valid)
+            if "mask_probs" in out:
+                inst.pred_masks = _unpack_masks(out["mask_probs"][i][valid])
+                inst.pred_rboxes = out["boxes"][i][valid]
+            results.append(inst)
+        return results
+
     def _model_postprocess(self, preds: Instances, height: int, width: int) -> Instances:
         """GlassRCNN._postprocess (reference glass_rcnn.py:103-128)."""
         if self.filter_small_boxes:
@@ -287,6 +418,111 @@ class GlassRunner:
         if self.post_process_flag:
             preds = self.post_processor(preds)
         return preds
+
+    def eval_batch_call(self, original_images: List[np.ndarray], batch_size: int = 8) -> List[Instances]:
+        """Batched ``eval_call``: shortest-edge resize, the batched model,
+        detector_postprocess back to original sizes, post-processing.
+
+        TPU.EVAL_UINT8_TRANSFER resizes a uint8 image as uint8 and uploads
+        it so (d2's eval mapper resizes uint8); the model normalizes on the
+        device.  TPU.ASYNC_FETCH pipelines the batches: a worker thread runs
+        each batch's model and fetch (both wait on the device) while this
+        thread post-processes the batch before, at most two batches ahead.
+        TPU.POSTPROCESS_WORKERS spreads a batch's post-processing over a
+        thread pool.  Every setting gives the same predictions."""
+        u8 = bool(self.cfg.TPU.EVAL_UINT8_TRANSFER)
+        prepped = []
+        for img in original_images:
+            img = self._to_bgr(img)
+            oh, ow = img.shape[:2]
+            nh, nw = shortest_edge_size(oh, ow, self.min_target_size, self.max_target_size)
+            if not u8 or img.dtype != np.uint8:
+                img = img.astype(np.float32)
+            prepped.append((cv2.resize(img, (nw, nh)), (oh, ow)))
+
+        results: List[Optional[Instances]] = [None] * len(prepped)
+        order = sorted(
+            range(len(prepped)), key=lambda i: self._pick_bucket(*prepped[i][0].shape[:2])
+        )
+        chunks = [order[s : s + batch_size] for s in range(0, len(order), batch_size)]
+        if bool(getattr(self.cfg.TPU, "ASYNC_FETCH", True)) and len(chunks) > 1:
+            with ThreadPoolExecutor(1) as worker:
+                pending = deque()
+                for idxs in chunks:
+                    pending.append((idxs, worker.submit(
+                        self.run_batch_on_resized, [prepped[i][0] for i in idxs])))
+                    if len(pending) > 2:
+                        idxs0, fut = pending.popleft()
+                        self._postprocess_chunk(idxs0, fut.result(), prepped, results)
+                while pending:
+                    idxs0, fut = pending.popleft()
+                    self._postprocess_chunk(idxs0, fut.result(), prepped, results)
+            return results
+        inflight = None
+        for idxs in chunks:
+            dispatched = self.dispatch_batch([prepped[i][0] for i in idxs])
+            if inflight is not None:
+                self._finish_eval_chunk(inflight, prepped, results)
+            inflight = (idxs, dispatched)
+        if inflight is not None:
+            self._finish_eval_chunk(inflight, prepped, results)
+        return results
+
+    def _finish_eval_chunk(self, inflight, prepped, results) -> None:
+        idxs, dispatched = inflight
+        self._postprocess_chunk(idxs, self.collect_batch(dispatched), prepped, results)
+
+    def _postprocess_chunk(self, idxs, preds, prepped, results) -> None:
+        def one(i, pr):
+            oh, ow = prepped[i][1]
+            pr = self._model_postprocess(pr, oh, ow)
+            if self.post_process_flag:
+                pr = self.post_processor(pr)
+            results[i] = pr
+
+        workers = int(getattr(self.cfg.TPU, "POSTPROCESS_WORKERS", 0) or 0)
+        if workers > 1 and len(idxs) > 1:
+            with ThreadPoolExecutor(min(workers, len(idxs))) as ex:
+                list(ex.map(lambda t: one(*t), zip(idxs, preds)))
+        else:
+            for i, pr in zip(idxs, preds):
+                one(i, pr)
+
+    def batch_call(self, original_images: List[np.ndarray], batch_size: int = 8) -> List[Instances]:
+        """Full-pipeline batched inference: per-image resize rules, grouped
+        batched model calls, per-image post-processing."""
+        prepped = []
+        for img in original_images:
+            img = self._to_bgr(img)
+            scale = self.get_inference_scale_ratio(img.shape)
+            if scale != 1:
+                nh = int(np.round(scale * img.shape[0]))
+                nw = int(np.round(scale * img.shape[1]))
+                resized = cv2.resize(img.astype(np.float32), (nw, nh))
+            else:
+                resized = img.astype(np.float32)
+            prepped.append((resized, scale, img.shape[:2]))
+
+        results: List[Optional[Instances]] = [None] * len(prepped)
+        # Group by bucket so each batch shares one padded shape.
+        order = sorted(
+            range(len(prepped)), key=lambda i: self._pick_bucket(*prepped[i][0].shape[:2])
+        )
+        for start in range(0, len(order), batch_size):
+            idxs = order[start : start + batch_size]
+            preds = self.run_batch_on_resized([prepped[i][0] for i in idxs])
+            for i, pr in zip(idxs, preds):
+                resized, scale, (oh, ow) = prepped[i]
+                pr = self._model_postprocess(pr, resized.shape[0], resized.shape[1])
+                if scale != 1 and len(pr):
+                    pr.pred_boxes = scale_rotated_np(
+                        np.asarray(pr.pred_boxes), 1.0 / scale, 1.0 / scale
+                    )
+                pr._image_size = (oh, ow)
+                if self.post_process_flag:
+                    pr = self.post_processor(pr)
+                results[i] = pr
+        return results
 
     def decode_texts(self, preds: Instances):
         return decode_instance_texts(preds, self.codec)

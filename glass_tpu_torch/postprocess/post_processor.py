@@ -12,15 +12,18 @@ and ``post_processor_academic.py`` semantics on host numpy:
   rescale + mask paste.
 
 These run on <= 100 boxes/image; the heavy per-box CUDA<->CPU ping-pong of
-the reference collapses to vectorized numpy here (and the matching
-device-side counterparts come with the on-device merge slice of the port).
+the reference collapses to vectorized numpy here, or, with
+POST_PROCESSING.ON_DEVICE, to the device fixpoint of ``device_merge.py``.
 """
 
 from __future__ import annotations
 
 import logging
-import numpy as np
 
+import numpy as np
+import torch
+
+from ..device import resolve_device
 from ..structures import Instances
 from ..text import TextCodec, decode_instance_texts
 from .np_geometry import (
@@ -34,7 +37,7 @@ logger = logging.getLogger(__name__)
 
 
 class PostProcessorRotatedBoxes:
-    def __init__(self, cfg):
+    def __init__(self, cfg, device=None):
         self.skip_all = cfg.POST_PROCESSING.SKIP_ALL
         self.minimal_ioa_thresh = 0.01
         self.detect_threshold = cfg.POST_PROCESSING.DETECT_THRESHOLD
@@ -43,11 +46,12 @@ class PostProcessorRotatedBoxes:
         self.pairs_height_ratio_thresh = cfg.POST_PROCESSING.PAIRS_HEIGHT_RATIO_THRESH
         self.valid_score = cfg.POST_PROCESSING.VALID_CONFIDENCE
         self.max_angle_diff = cfg.POST_PROCESSING.MAX_ANGLE_DIFF
-        # On-device merge fixpoint (postprocess/device_merge.py): one jit
-        # call instead of the per-iteration host IoA/minAreaRect/NMS loop.
-        # Wins on locally-attached chips; on high-latency tunneled backends
-        # the extra host<->device round trip can dominate, so it is opt-in.
+        # On-device merge fixpoint (postprocess/device_merge.py) instead of
+        # the per-iteration host IoA/minAreaRect/NMS loop; opt-in, as in
+        # glass_tpu.  It runs on ``device`` (cuda unless the caller asks for
+        # the CPU; GlassRunner passes its own).
         self.on_device = bool(getattr(cfg.POST_PROCESSING, "ON_DEVICE", False))
+        self.device = resolve_device(device) if self.on_device else None
         assert self.valid_score <= self.detect_threshold
 
     def __call__(self, preds: Instances) -> Instances:
@@ -122,13 +126,36 @@ class PostProcessorRotatedBoxes:
     def _merge_on_device(
         self, preds: Instances, ioa_threshold: float, pairs_height_ratio_thresh: float
     ) -> Instances:
-        """POST_PROCESSING.ON_DEVICE: the on-device merge fixpoint is not
-        ported yet; it arrives with the device-merge slice of the port."""
-        raise NotImplementedError(
-            "POST_PROCESSING.ON_DEVICE is not ported to glass_tpu_torch yet "
-            "(the on-device merge slice); set POST_PROCESSING.ON_DEVICE False "
-            "to use the host merge"
+        """POST_PROCESSING.ON_DEVICE path: the fixpoint of
+        postprocess/device_merge.py on a padded power-of-two capacity (at
+        least 8), on the post-processor's device."""
+        from .device_merge import merge_intersecting_boxes_device
+
+        n = len(preds)
+        cap = max(8, int(2 ** np.ceil(np.log2(n))))  # few distinct shapes
+        boxes = np.zeros((cap, 5), np.float32)
+        boxes[:, 2:4] = 1.0
+        boxes[:n] = np.asarray(preds.pred_boxes, np.float32)
+        scores = np.zeros((cap,), np.float32)
+        scores[:n] = np.asarray(preds.scores, np.float32)
+        valid = np.zeros((cap,), bool)
+        valid[:n] = True
+        dev = self.device
+        out_boxes, out_valid = merge_intersecting_boxes_device(
+            torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev),
+            torch.from_numpy(valid).to(dev),
+            ioa_threshold=ioa_threshold,
+            height_ratio_thresh=pairs_height_ratio_thresh,
+            max_angle_diff=self.max_angle_diff,
+            valid_score=self.valid_score,
         )
+        out_boxes = out_boxes.cpu().numpy()[:n]
+        keep = out_valid.cpu().numpy()[:n]
+        # Keep the host path's descending-score output ordering.
+        preds.pred_boxes = out_boxes
+        preds = preds[keep]
+        order = np.argsort(-np.asarray(preds.scores), kind="stable")
+        return preds[order]
 
     @classmethod
     def _merge_rotated_boxes(cls, boxes1, boxes2, scores1=None, scores2=None):
@@ -157,8 +184,8 @@ class PostProcessorRotatedBoxes:
 
 
 class PostProcessorAcademic(PostProcessorRotatedBoxes):
-    def __init__(self, cfg):
-        super().__init__(cfg)
+    def __init__(self, cfg, device=None):
+        super().__init__(cfg, device)
         self.text_threshold = cfg.POST_PROCESSING.TEXT_THRESHOLD
         self.codec = TextCodec.from_config(cfg)
 
@@ -303,9 +330,11 @@ def detector_postprocess(
     return out
 
 
-def build_post_processor(cfg):
+def build_post_processor(cfg, device=None):
+    """``device`` is where the on-device merge (POST_PROCESSING.ON_DEVICE)
+    runs: cuda unless the caller asks for the CPU."""
     name = cfg.POST_PROCESSING.NAME
     return {
         "PostProcessorRotatedBoxes": PostProcessorRotatedBoxes,
         "PostProcessorAcademic": PostProcessorAcademic,
-    }[name](cfg)
+    }[name](cfg, device)

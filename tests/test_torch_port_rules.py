@@ -1,6 +1,7 @@
 """Rules the port keeps: glass_tpu_torch (and chip_smoke.py) never import
-jax or glass_tpu, its weights carry across from glass_tpu's parameter tree,
-and its entry points refuse to run on a GPU that is not there."""
+jax or glass_tpu (nor python-Levenshtein, which the card machine lacks),
+its weights carry across from glass_tpu's parameter tree, and its entry
+points refuse to run on a GPU that is not there."""
 
 import ast
 import os
@@ -25,7 +26,7 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "glass_tpu_torch")
 ICDAR15 = os.path.join(ROOT, "configs", "glass_finetune_icdar15.yaml")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "glass_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "glass_tpu", "Levenshtein")
 
 
 def _port_files():
