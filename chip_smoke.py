@@ -41,13 +41,34 @@ Phases:
      ASYNC_FETCH equals batch 1 bit for bit, and that the on-device merge on
      the card agrees with the same code on the CPU (each iteration from the
      CPU's state: the same survivors, boxes within 1e-3 px and 1e-3 degrees).
+  7. K1b (the rotated RoIAlign backward, csrc/roi_align_rotated_backward.cu)
+     against its plain PyTorch version at the training shapes (an 832x1440
+     bucket, C=256, the box, mask and recognizer poolers with 512, 128 and
+     8 rois) in float32 and bfloat16, beside K1's forward at the same
+     shapes; edge cases 0 and 1 roi, rois straddling the border and 512
+     rois on one pixel.  The tolerance is the bound of two reordered f32
+     sums (the kernel's atomics add in another order).
+  8. the training path: ``python -m glass_tpu_torch.train`` run in-process
+     (``glass_tpu_torch.train.main``) on the ICDAR15 finetune configuration
+     at bfloat16 over a synthetic training set of phase 6's glyph scenes:
+     20 steps at IMS_PER_BATCH 1 (every loss finite; K1, K1b and K2 launch
+     3, 3 and 1 times a step), the checkpoint loaded by the port's
+     GlassRunner, the host syncs of a step, one profiled step (device busy
+     share; device time and launches per stage span), 20 steps on one fixed
+     batch (the loss falls), 3 steps at IMS_PER_BATCH 4 (3, 3 and 4
+     launches a step: one pooler launch over the batch, one crop launch an
+     image), and one f32 step on the card against the same step on the CPU
+     from the trainer's seeded iteration-0 weights.
 
 Prints, on the last two lines, a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
 
 Rehearse phase 6 on the CPU (no card) at a small size with
 ``phase_eval(state_dict, out_dir, device="cpu", n_images=2, hw=(96, 128),
-opts=[...small bucket...])``; it takes ``device`` for that alone.
+opts=[...small bucket...])``, and phase 8 with ``phase_train(out_dir,
+device="cpu", n_images=3, hw=(96, 128), opts=[...small shapes...], steps=2,
+steps_b4=1, overfit_steps=10, step_opts=[...])``; they take ``device`` for
+that alone.
 """
 
 from __future__ import annotations
@@ -144,8 +165,9 @@ def kernel_ms(fn, iters: int = 50, warmup: int = 3) -> float:
 
 def word_rois(rng: np.random.RandomState, n: int, h: int, w: int) -> np.ndarray:
     """Word-like rotated boxes over an h x w image: elongated, rotated, some
-    hanging over the edges, five far larger than any 48x56 tile of any level,
-    and more than 16 whose adaptive grid exceeds the bulk grid."""
+    hanging over the edges, up to five (one in eight) far larger than any
+    48x56 tile of any level, and more than 16 whose adaptive grid exceeds
+    the bulk grid."""
     cx = rng.uniform(-40, w + 40, n)
     cy = rng.uniform(-40, h + 40, n)
     bw = np.exp(rng.uniform(np.log(12), np.log(900), n))
@@ -153,8 +175,10 @@ def word_rois(rng: np.random.RandomState, n: int, h: int, w: int) -> np.ndarray:
     ang = rng.uniform(-90, 90, n)
     ang[: n // 4] = 0.0
     rois = np.stack([cx, cy, bw, bh, ang], 1).astype(np.float32)
-    rois[-5:, 2] = rng.uniform(3600, 4200, 5)
-    rois[-5:, 3] = rng.uniform(2000, 3200, 5)
+    k = min(5, n // 8)
+    if k:
+        rois[-k:, 2] = rng.uniform(3600, 4200, k)
+        rois[-k:, 3] = rng.uniform(2000, 3200, k)
     return rois
 
 
@@ -797,16 +821,19 @@ def render_word(word: str, scale: int) -> np.ndarray:
     return img
 
 
-def write_eval_set(root: str, n_images: int, hw, seed: int = 0) -> str:
-    """A COCO-style set (``<root>/ds/synth_test/annotations.json`` and its
+def write_eval_set(root: str, n_images: int, hw, seed: int = 0, name: str = "synth_test",
+                   train: bool = False) -> str:
+    """A COCO-style set (``<root>/ds/<name>/annotations.json`` and its
     PNGs) of words on noisy backgrounds, one text line per band of the
-    image; returns the dataset yaml."""
+    image, annotated with rotated_box, rec, angle, orientation and
+    segmentation; returns the dataset yaml, which lists the set for
+    evaluation, or with ``train`` for training."""
     import cv2
 
     h, w = hw
     rng = np.random.RandomState(seed)
     scale = max(1, h // 100)
-    d = os.path.join(root, "ds", "synth_test")
+    d = os.path.join(root, "ds", name)
     os.makedirs(d, exist_ok=True)
     images, anns = [], []
     for i in range(n_images):
@@ -836,7 +863,8 @@ def write_eval_set(root: str, n_images: int, hw, seed: int = 0) -> str:
         json.dump({"images": images, "annotations": anns, "categories": [{"id": 1, "name": "word"}]}, f)
     path = os.path.join(root, "datasets.yaml")
     with open(path, "w") as f:
-        f.write(f"ROOT: {os.path.join(root, 'ds')}\nDATASETS: []\nVAL_DATASETS:\n  - synth_test\n")
+        sets = f"DATASETS:\n  - {name}\nVAL_DATASETS: []\n" if train else f"DATASETS: []\nVAL_DATASETS:\n  - {name}\n"
+        f.write(f"ROOT: {os.path.join(root, 'ds')}\n{sets}")
     return path
 
 
@@ -1085,6 +1113,484 @@ def _phase_eval(state_dict, root, device, n_images, hw, opts):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 7: K1b, the rotated RoIAlign backward, at the training shapes
+# ---------------------------------------------------------------------------
+
+TRAIN_BUCKET_HW = (832, 1440)  # a 720x1280 image at short edge 810, padded to 32
+# rois per image of the three poolers on the training path (ROI_HEADS 512,
+# masks 512 * 0.25, recognizer words MAX_BATCH_SIZE 8)
+TRAIN_ROIS = {"box": 512, "mask": 128, "recognizer": 8}
+
+
+def _train_pooler_inputs(name, rng, dtype, rois):
+    """Packed features, levels and grid at the training bucket, as the
+    training forward builds them for one image."""
+    from glass_tpu_torch.ops import roi_align_rotated as ra
+
+    _, out_hw, sr, bulk, single = next(p for p in POOLERS if p[0] == name)
+    h, w = TRAIN_BUCKET_HW
+    if single:
+        fused = torch.from_numpy(rng.randn(h // 4, w // 4, 256).astype(np.float32)).cuda().to(dtype)
+        pyr = ra.pack_pyramid([fused], [0.25])
+        levels = torch.zeros((rois.shape[0],), dtype=torch.int32, device=rois.device)
+    else:
+        sizes = [(-(-h // s), -(-w // s)) for s in STRIDES]
+        maps = [torch.from_numpy(rng.randn(a, b, 256).astype(np.float32)).cuda().to(dtype) for a, b in sizes]
+        pyr = ra.pack_pyramid(maps, [1.0 / s for s in STRIDES])
+        levels = ra.assign_boxes_to_levels(rois, 2, 6)
+    if sr > 0:
+        grid = ra.fixed_grid(rois.shape[0], sr, rois.device)
+    else:
+        rh, rw = ra._scaled_extent(rois, pyr.meta, levels)
+        grid = ra.split_grid(rh, rw, out_hw, bulk, 4, 16)
+    return pyr, levels, grid, out_hw
+
+
+def _row_contributions(meta, rois, levels, grid, out_hw, n_rows):
+    """(n_rows,) how many taps of nonzero weight add into each packed row."""
+    from glass_tpu_torch.ops.roi_align_rotated import plain_samples
+
+    counts = torch.zeros(n_rows, dtype=torch.float32, device=rois.device)
+    for idx, ws in plain_samples(meta, rois, levels, grid, out_hw):
+        for i, w in zip(idx, ws):
+            hit = i[w != 0]
+            counts.index_add_(0, hit, torch.ones_like(hit, dtype=torch.float32))
+    return counts
+
+
+def k1b_case(label, pyr, rois, levels, grid, out_hw, rng, timed=True):
+    """K1b against its plain version on one upstream gradient in the
+    features' dtype.  Both add the same f32 terms w * g; the kernel's
+    atomics add them in another order, so the tolerance per element is
+    2 n 2^-24 sum|w g| (n the row's contributions), the bound of two
+    reordered f32 sums."""
+    from glass_tpu_torch.ops import roi_align_rotated as ra
+
+    dtype, c, n_rows = pyr.flat.dtype, pyr.flat.shape[1], pyr.flat.shape[0]
+    grad_out = torch.from_numpy(rng.randn(rois.shape[0], *out_hw, c).astype(np.float32)).cuda().to(dtype)
+    launch = lambda: ra.roi_align_rotated_packed_backward(grad_out, pyr.meta, rois, levels, grid, n_rows)  # noqa: E731
+    got = launch()
+    ref = ra.roi_align_rotated_packed_backward_plain(grad_out, pyr.meta, rois, levels, grid, n_rows)
+    mag = ra.roi_align_rotated_packed_backward_plain(grad_out.abs(), pyr.meta, rois, levels, grid, n_rows)
+    counts = _row_contributions(pyr.meta, rois, levels, grid, out_hw, n_rows)
+    torch.cuda.synchronize()
+    tol = 2.0 * counts[:, None] * 2.0 ** -24 * mag + 1e-30
+    excess = ((got - ref).abs() - tol).max().item() if rois.shape[0] else 0.0
+    err = _max_err(got, ref)
+    rel_tol = float((tol.max()).item()) if rois.shape[0] else 0.0
+    row = dict(pooler=label, dtype=str(dtype).split(".")[1], err=err, tol=rel_tol, rois=int(rois.shape[0]))
+    text = (f"K1b {label:22s} {out_hw} {row['dtype']:8s} R={rois.shape[0]:3d} max|err| {err:.3g} "
+            f"(per-element tol up to {rel_tol:.3g}; max contributions a row {int(counts.max()) if rois.shape[0] else 0})")
+    if timed and rois.shape[0]:
+        rows_touched = touched_rows(pyr.meta, rois, levels, grid, out_hw)
+        taps = int((counts).sum())
+        nbytes = grad_out.numel() * grad_out.element_size() + 2 * rows_touched * c * 4 + rois.numel() * 4
+        b_ms, b_by = bound(nbytes, taps * c * 2)
+        row.update(ms=kernel_ms(launch), call_ms=time_ms(launch, 50),
+                   plain_ms=time_ms(lambda: ra.roi_align_rotated_packed_backward_plain(
+                       grad_out, pyr.meta, rois, levels, grid, n_rows), 3, 1),
+                   bound_ms=b_ms, bound_by=b_by, rows_touched=rows_touched, taps=taps)
+        text += (f" kernel {row['ms']:.4f} ms (wrapper call {row['call_ms']:.4f} ms, zeroing the "
+                 f"{n_rows}x{c} f32 buffer included) plain {row['plain_ms']:.3f} ms bound {b_ms:.4f} ms "
+                 f"({b_by}: {rows_touched} rows touched, {taps} taps), {100 * b_ms / row['ms']:.1f}% of it")
+    log(text)
+    if not excess <= 0.0:
+        raise AssertionError(f"K1b {label} {dtype}: error exceeds the reordering bound by {excess}")
+    return row
+
+
+def phase_k1b(rng):
+    """K1b (csrc/roi_align_rotated_backward.cu) against its plain version
+    at the training shapes (an 832x1440 bucket, C = 256, the box, mask and
+    recognizer poolers with 512, 128 and 8 rois) in f32 and bf16, K1's
+    forward at the same shapes, then the edge cases: 0 and 1 roi, rois
+    straddling the border (clamped taps) and 512 rois on one pixel (every
+    atomic on the same rows)."""
+    h, w = TRAIN_BUCKET_HW
+    fwd, bwd, edge = [], [], []
+    for name, n in TRAIN_ROIS.items():
+        rois = torch.from_numpy(word_rois(rng, n, h, w)).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            pyr, levels, grid, out_hw = _train_pooler_inputs(name, rng, dtype, rois)
+            fwd.append(k1_case(f"train {name}", pyr, rois, levels, grid, out_hw))
+            bwd.append(k1b_case(f"train {name}", pyr, rois, levels, grid, out_hw, rng))
+    erng = np.random.RandomState(2)
+    border = np.stack([erng.uniform(-24, w + 24, 64), erng.uniform(-24, h + 24, 64),
+                       erng.uniform(16, w * 0.6, 64), erng.uniform(12, h * 0.4, 64),
+                       erng.uniform(-180, 180, 64)], 1).astype(np.float32)
+    one_pixel = np.tile(np.array([[w / 2 + 0.3, h / 2 + 0.7, 2.0, 2.0, 0.0]], np.float32), (512, 1))
+    for dtype in (torch.float32, torch.bfloat16):
+        for name in ("box", "mask"):
+            rois = torch.from_numpy(word_rois(erng, 8, h, w)).cuda()
+            pyr, levels, grid, out_hw = _train_pooler_inputs(name, erng, dtype, rois)
+            for n in (0, 1):
+                edge.append(k1b_case(f"{name} R={n}", pyr, rois[:n], levels[:n], grid[:n], out_hw, erng,
+                                     timed=False))
+        for label, arr in (("box border-straddling", border), ("box one pixel x512", one_pixel)):
+            rois = torch.from_numpy(arr).cuda()
+            pyr, levels, grid, out_hw = _train_pooler_inputs("box", erng, dtype, rois)
+            edge.append(k1b_case(label, pyr, rois, levels, grid, out_hw, erng, timed=False))
+    return fwd, bwd, edge
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 20       # ICDAR15 finetune config, IMS_PER_BATCH 1
+TRAIN_STEPS_B4 = 3     # then IMS_PER_BATCH 4
+OVERFIT_STEPS = 20     # one fixed batch, fixed draws
+TRAIN_STAGES = ("glass.backbone", "glass.rpn_loss", "glass.rpn", "glass.box_head", "glass.recognizer",
+                "glass.mask_head", "glass.backward", "glass.optimizer")
+# SOLVER.BASE_LR for these short runs from random weights (the config's 0.01
+# is for a pretrained trunk); the overfit loop uses it too
+TRAIN_LR = "0.002"
+# f32 step, card against CPU (PERF.md states them with their reasons):
+STEP_LOSS_RTOL = 1e-3
+STEP_HEAD_L2 = 1e-3
+STEP_GRAD_L2 = 5e-2
+STEP_BN_RTOL = 1e-3
+HEADS = ("proposal_generator.", "roi_heads.box_predictor.", "roi_heads.mask_head.",
+         "roi_heads.recognizer_head.decoder.")
+
+
+class StepClock:
+    """Wraps the trainer's ``train_step``: synchronizes after each step and
+    keeps its wall time and its metrics as floats."""
+
+    def __init__(self, device):
+        from glass_tpu_torch.train import trainer as trainer_mod
+
+        self.mod, self.fn, self.device = trainer_mod, trainer_mod.train_step, device
+        self.ms, self.metrics = [], []
+
+    def __enter__(self):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            m = self.fn(*a, **k)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.metrics.append({key: float(v) for key, v in m.items()})
+            return m
+
+        self.mod.train_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.train_step = self.fn
+
+
+class RecordedDraws:
+    """The priorities seam recording its draws (from a CPU generator) and
+    replaying them in the same order, on any device."""
+
+    def __init__(self, seed):
+        self.generator = torch.Generator().manual_seed(seed)
+        self.draws, self.replay = [], None
+
+    def for_device(self, device, replay: bool):
+        self.device, self.replay, self.pos = torch.device(device), replay, 0
+        return self
+
+    def uniform(self, site, image, shape):
+        if not self.replay:
+            self.draws.append(torch.rand(shape, generator=self.generator))
+        u = self.draws[self.pos]
+        self.pos += 1
+        return u.to(self.device)
+
+
+class RecordedProposals:
+    """Records the card's training proposals and hands them to the CPU run,
+    so the two steps sample the same rois (a near-tie of the RPN's scores
+    may reorder the proposals of two devices, as phase 5 states)."""
+
+    def __init__(self):
+        from glass_tpu_torch.train import train_step as ts
+
+        self.ts, self.fn, self.saved, self.replay = ts, ts.select_proposals_single_image, [], False
+
+    def __enter__(self):
+        def recorded(*a, **k):
+            if self.replay:
+                out = self.saved.pop(0)
+                return tuple(v.to(a[0][0].device) for v in out)
+            out = self.fn(*a, **k)
+            self.saved.append(tuple(v.cpu() for v in out))
+            return out
+
+        self.ts.select_proposals_single_image = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.ts.select_proposals_single_image = self.fn
+
+
+def _span_kernels(prof, stages):
+    """Per stage span: (device ms, kernel launches), every kernel attributed
+    to the span whose host window holds the start of the op that launched
+    it (on any thread: autograd runs the backward on its own)."""
+    from torch.autograd import DeviceType
+
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CPU and e.name in stages]
+    out = {name: [0.0, 0] for name in stages}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        for name, t0, t1 in spans:
+            if t0 <= e.time_range.start <= t1:
+                out[name][0] += sum(k.duration for k in e.kernels) / 1e3
+                out[name][1] += len(e.kernels)
+                break
+    return out
+
+
+def profile_train_step(fn, out_dir):
+    """torch.profiler over one training step: device busy share and each
+    stage span's device time and launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    not_work = set(TRAIN_STAGES) | {"Activity Buffer Request"}
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in not_work]
+    dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    per = _span_kernels(prof, TRAIN_STAGES)
+    try:
+        table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
+    except (AttributeError, KeyError):
+        table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
+    lines = [f"  {n:17s} {c:6d} launches {ms:9.3f} ms device" for n, (ms, c) in per.items()]
+    lines.append(f"  spans hold {sum(c for _, c in per.values())} of {len(dev)} device records and "
+                 f"{sum(ms for ms, _ in per.values()):.3f} of {dev_ms:.3f} ms device time")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_train_step.txt"), "w") as f:
+        f.write(table + "\n\nper stage span:\n" + "\n".join(lines) + "\n")
+    log(f"train profile (one step, {wall_ms:.1f} ms wall, {card_line()}): device busy {dev_ms:.1f} ms "
+        f"= {100 * dev_ms / wall_ms:.1f}% of wall, {len(dev)} device records")
+    for line in lines:
+        log(line)
+    return wall_ms, dev_ms, per
+
+
+def phase_train(out_dir, device="cuda", n_images=8, hw=(720, 1280), opts=(), steps=TRAIN_STEPS,
+                steps_b4=TRAIN_STEPS_B4, overfit_steps=OVERFIT_STEPS, step_opts=()):
+    """The training path through ``glass_tpu_torch.train.main`` and the
+    checks of its step; see the module docstring."""
+    device = torch.device(device)
+    root = os.path.join(out_dir, "train")
+    try:
+        return _phase_train(root, device, n_images, hw, list(opts), steps, steps_b4, overfit_steps,
+                            list(step_opts))
+    finally:  # images and checkpoints are large; the logs stay
+        import glob
+        import shutil
+
+        shutil.rmtree(os.path.join(root, "ds"), ignore_errors=True)
+        for pth in glob.glob(os.path.join(root, "*", "*.pth")):
+            os.remove(pth)
+
+
+def _check_launches(launches, steps, images, what):
+    want = {"roi_align_rotated": 3 * steps, "roi_align_rotated_backward": 3 * steps,
+            "crop_rois": images * steps}
+    got = {k: launches.get(k, 0) for k in want}
+    log(f"train {what}: launches {got} over {steps} steps of {images} image(s) (want 3 K1, 3 K1b "
+        f"a step, one K2 an image)")
+    if got != want:
+        raise AssertionError(f"train {what}: launches {got}, expected {want}")
+
+
+def _phase_train(root, device, n_images, hw, opts, steps, steps_b4, overfit_steps, step_opts):
+    from glass_tpu_torch import train as port_train
+    from glass_tpu_torch.inference import GlassRunner
+    from glass_tpu_torch.ops import _cuda
+    from glass_tpu_torch.train.train_step import Priorities, batch_to_device, train_step
+
+    card = card_line() if device.type == "cuda" else "CPU"
+    ds_yaml = write_eval_set(root, n_images, hw, seed=3, name="synth_train", train=True)
+    opts = ["TPU.COMPUTE_DTYPE", "bfloat16", "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0",
+            "VIS_PERIOD", "0", "SOLVER.BASE_LR", TRAIN_LR, *opts]
+    common = ["--config", ICDAR15, "--datasets", ds_yaml, "--device", str(device)]
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    # the CLI at IMS_PER_BATCH 1: the main path of this phase
+    _cuda.LAUNCHES.clear()
+    with StepClock(device) as clock:
+        t0 = time.perf_counter()
+        trainer = port_train.main(common + ["--output", os.path.join(root, "b1"), "--max-iter", str(steps), *opts])
+        wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0
+    if cuda:
+        _check_launches(launches, steps, 1, "CLI at IMS_PER_BATCH 1")
+    totals = [m["total_loss"] for m in clock.metrics]
+    bad = [i for i, m in enumerate(clock.metrics) if not all(np.isfinite(v) for v in m.values())]
+    ms = np.asarray(clock.ms[2:] or clock.ms)
+    log(f"train CLI ({card}): {steps} steps at IMS_PER_BATCH 1 (bf16) in {wall:.1f} s; s/step median "
+        f"{np.median(ms) / 1e3:.3f} (p90 {np.percentile(ms, 90) / 1e3:.3f}, first two {clock.ms[:2]} ms "
+        f"excluded), {1e3 / np.median(ms):.2f} img/s; peak memory {peak:.0f} MiB; total loss per step "
+        f"{[round(v, 3) for v in totals]}")
+    if bad:
+        raise AssertionError(f"train: non-finite losses at steps {bad}: {clock.metrics[bad[0]]}")
+    log("train metrics at iteration 0: " + ", ".join(f"{k} {v:.4g}" for k, v in sorted(clock.metrics[0].items())))
+
+    # the checkpoint: written, and the port's eval runner loads it
+    ckpt_dir = os.path.join(root, "b1")
+    with open(os.path.join(ckpt_dir, "last_checkpoint")) as f:
+        pth = os.path.join(ckpt_dir, f.read().strip())
+    runner = GlassRunner(model_path=pth, cfg=icdar15_cfg("bfloat16"), device=device)
+    same = all(torch.equal(v.cpu(), trainer.model.state_dict()[k].cpu()) for k, v in runner.model.state_dict().items())
+    image = synthetic_image(np.random.RandomState(5), *hw)
+    preds = runner(image)
+    log(f"train checkpoint {os.path.basename(pth)}: GlassRunner loads it (weights equal to the trainer's: "
+        f"{same}) and returns {len(preds)} words on a {hw[0]}x{hw[1]} image")
+    if not same:
+        raise AssertionError("train: the checkpoint's weights differ from the trainer's")
+    del runner
+
+    # host syncs of one step and one profiled step, on a batch of the loader
+    loader = iter(trainer.build_train_loader())
+    host_batch = next(loader)
+    batch = batch_to_device(host_batch, device)
+    model, opt, tcfg = trainer.model, trainer.optimizer, trainer.tcfg
+
+    def one_step(it=0):
+        return train_step(model, opt, tcfg, batch, Priorities(0, it, device), it)
+
+    one_step()
+    syncs, where = count_syncs(one_step, device)
+    log(f"train host syncs ({card}): {syncs} in one step; most from {where}")
+    prof = profile_train_step(one_step, os.path.join(root, "profile")) if cuda else None
+
+    # overfit one fixed batch with fixed draws
+    fixed = []
+    for _ in range(overfit_steps):
+        m = one_step()
+        fixed.append(float(m["total_loss"]))
+    first, final = float(np.mean(fixed[:5])), float(np.mean(fixed[-5:]))
+    last = {k: float(v) for k, v in m.items() if k.startswith("loss")}
+    log(f"train overfit ({card}): {overfit_steps} steps on one batch at lr {TRAIN_LR}: total loss "
+        f"{[round(v, 3) for v in fixed]}; mean of the first five {first:.4f}, of the last five {final:.4f}; "
+        f"last step " + ", ".join(f"{k} {v:.3g}" for k, v in sorted(last.items())))
+    if not (np.isfinite(fixed).all() and final < first):
+        raise AssertionError(f"train: the loss did not fall on a fixed batch ({first} -> {final})")
+
+    # IMS_PER_BATCH 4: BN over a batch, multi-image packing
+    _cuda.LAUNCHES.clear()
+    with StepClock(device) as clock4:
+        port_train.main(common + ["--output", os.path.join(root, "b4"), "--max-iter", str(steps_b4),
+                                  *opts, "SOLVER.IMS_PER_BATCH", "4"])
+    launches4 = dict(_cuda.LAUNCHES)
+    if cuda:
+        _check_launches(launches4, steps_b4, 4, "CLI at IMS_PER_BATCH 4")
+    ms4 = np.asarray(clock4.ms[1:] or clock4.ms)
+    bad4 = [i for i, m in enumerate(clock4.metrics) if not all(np.isfinite(v) for v in m.values())]
+    log(f"train CLI ({card}): {steps_b4} steps at IMS_PER_BATCH 4: s/step median {np.median(ms4) / 1e3:.3f} "
+        f"(first excluded), {4e3 / np.median(ms4):.2f} img/s; total loss {[round(m['total_loss'], 3) for m in clock4.metrics]}")
+    if bad4:
+        raise AssertionError(f"train at IMS_PER_BATCH 4: non-finite losses at steps {bad4}")
+
+    step = check_f32_step(ds_yaml, device, step_opts)
+    return dict(launches=launches, median_s=float(np.median(ms)) / 1e3, peak_mib=peak, syncs=syncs,
+                overfit=(first, final), b4_median_s=float(np.median(ms4)) / 1e3, profile=prof, step=step)
+
+
+def check_f32_step(ds_yaml, device, step_opts):
+    """One f32 training step on the card against the same step on the CPU
+    (plain kernel versions): the same weights, the same batch, the same
+    recorded draws and the card's proposals (``RecordedProposals``); no
+    TF32.  Compares every loss, every parameter's gradient and the BN
+    updates with the STEP_* tolerances.
+
+    The weights are the trainer's seeded iteration-0 weights
+    (``init_weights_``), where every head is far from saturation.  After
+    the CLI's steps and the overfit loop the orientation head is saturated:
+    its loss and gradient are then mostly the f32 rounding of ``1 - p``, and
+    a relative tolerance on them measures that rounding, not the port."""
+    from glass_tpu_torch.config import get_cfg, merge_from_dataset_config
+    from glass_tpu_torch.data import DatasetManager
+    from glass_tpu_torch.data.loader import build_train_loader
+    from glass_tpu_torch.data.mapper import DatasetMapper
+    from glass_tpu_torch.models import GlassArch, GlassRCNN
+    from glass_tpu_torch.train.train_step import TrainConfig, batch_to_device, glass_train_forward
+    from glass_tpu_torch.train.trainer import init_weights_
+
+    cfg = get_cfg(ICDAR15)
+    merge_from_dataset_config(cfg, ds_yaml)
+    cfg.merge_from_list(["TPU.COMPUTE_DTYPE", "float32", "INPUT.MIN_SIZE_TRAIN", "(320, 320)",
+                         "INPUT.MAX_SIZE_TRAIN", "576", "INPUT.ROTATION.ENABLED", "False", *step_opts])
+    DatasetManager(cfg).register()
+    records = DatasetManager.load(cfg.DATASETS.TRAIN[0])
+    host = next(iter(build_train_loader(cfg, records, DatasetMapper(cfg, True, np.random.RandomState(0)), 1)))
+    arch, tcfg = GlassArch.from_config(cfg), TrainConfig.from_config(cfg)
+    state_dict = init_weights_(GlassRCNN(arch), max(int(cfg.SEED), 0)).state_dict()
+    draws = RecordedDraws(11)
+    out = []
+    with RecordedProposals() as props:
+        for n, dev in enumerate((device, torch.device("cpu"))):
+            model = GlassRCNN(arch)
+            model.load_state_dict(state_dict)
+            model = model.to(dev).train()
+            t0 = time.perf_counter()
+            total, losses = glass_train_forward(model, tcfg, batch_to_device(host, dev),
+                                                draws.for_device(dev, replay=n > 0))
+            total.backward()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out.append(dict(
+                losses={k: float(v.detach()) for k, v in losses.items()},
+                grads={n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None},
+                bn={k: v.detach().cpu() for k, v in model.state_dict().items() if "running_" in k},
+                s=time.perf_counter() - t0))
+            props.replay = True
+    card, cpu = out
+    failed = []
+    loss_err = {k: abs(card["losses"][k] - v) / max(abs(v), 1e-6) for k, v in cpu["losses"].items()}
+    worst_loss = max(loss_err, key=loss_err.get)
+    if loss_err[worst_loss] > STEP_LOSS_RTOL:
+        failed.append(f"loss {worst_loss} rel {loss_err[worst_loss]:.3g}")
+    if set(card["grads"]) != set(cpu["grads"]):
+        failed.append("gradient sets differ")
+    errs = {}
+    for n, g in cpu["grads"].items():
+        want, got = g.numpy(), card["grads"][n].numpy()
+        if np.abs(want).max() < 1e-6:
+            errs[n] = (float(np.abs(got - want).max()), 1e-6)
+        else:
+            l2 = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+            errs[n] = (l2, STEP_HEAD_L2 if n.startswith(HEADS) else STEP_GRAD_L2)
+    bad = {n: e for n, (e, tol) in errs.items() if e > tol}
+    if bad:
+        failed.append(f"{len(bad)} gradients beyond tolerance, e.g. {dict(list(bad.items())[:4])}")
+    bn_err = max(float((card["bn"][k] - v).abs().max() / max(float(v.abs().max()), 1e-6)) for k, v in cpu["bn"].items())
+    if bn_err > STEP_BN_RTOL:
+        failed.append(f"BN updates rel {bn_err:.3g}")
+    heads = max(e for n, (e, _) in errs.items() if n.startswith(HEADS))
+    deep = sorted(errs.items(), key=lambda kv: -kv[1][0])[:3]
+    log(f"train f32 step card vs CPU ({card_line() if device.type == 'cuda' else 'CPU'}): "
+        f"image {tuple(host['images'].shape[1:3])}, "
+        f"card {card['s']:.2f} s, CPU {cpu['s']:.2f} s; worst loss {worst_loss} rel {loss_err[worst_loss]:.3g} "
+        f"(tol {STEP_LOSS_RTOL}); {len(errs)} gradients: heads max rel L2 {heads:.3g} (tol {STEP_HEAD_L2}), "
+        f"largest {[(n, round(e, 5)) for n, (e, _) in deep]} (tol {STEP_GRAD_L2}); BN updates max rel "
+        f"{bn_err:.3g} (tol {STEP_BN_RTOL}) -> {'ok' if not failed else 'FAILED'}; CPU losses "
+        + ", ".join(f"{k} {v:.4g}" for k, v in sorted(cpu["losses"].items()) if k.startswith("loss")))
+    if failed:
+        raise AssertionError(f"train f32 step: card and CPU differ: {failed}")
+    return dict(loss_rel=loss_err[worst_loss], head_l2=heads, worst_l2=deep[0][1][0], bn_rel=bn_err)
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     return {
         "name": name,
@@ -1103,7 +1609,7 @@ def kernel_entry(name, source, replaces, launches, rows):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
     ap.add_argument("--out", default="chip_smoke_out", help="directory for the build log and the profile table")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1122,8 +1628,8 @@ def main():
         f"{torch.cuda.device_count()} device(s)")
     rng = np.random.RandomState(0)
     rois_np = word_rois(rng, N_ROIS, *BUCKET_HW)
-    k1_rows = k2_rows = None
-    main = None
+    k1_rows = k2_rows = k1b_rows = None
+    main = train = None
     if 1 in phases:
         phase_build(args.out)
     if 2 in phases:
@@ -1139,6 +1645,10 @@ def main():
             phase_whole(images[0], state_dict)
         if 6 in phases:
             phase_eval(state_dict, args.out)
+    if 7 in phases:
+        k1_train_rows, k1b_rows, k1b_edge = phase_k1b(np.random.RandomState(7))
+    if 8 in phases:
+        train = phase_train(args.out)
 
     kernels = []
     launches = (main or {}).get("launches", {})
@@ -1156,6 +1666,14 @@ def main():
                              "glass_tpu/ops/pallas_crop.py:77", launches.get("crop_rois", 0), rows)
         entry["max_abs_err"] = max(r["err"] for r in k2_rows + k2_edge)
         entry["library_ms"] = k2_lib_ms
+        kernels.append(entry)
+    if k1b_rows:
+        rows = [r for r in k1b_rows if r["dtype"] == "bfloat16"]
+        entry = kernel_entry("roi_align_rotated_backward",
+                             "glass_tpu_torch/csrc/roi_align_rotated_backward.cu",
+                             "glass_tpu/ops/roi_align_rotated.py:375 (autodiff of the packed pooler)",
+                             (train or {}).get("launches", {}).get("roi_align_rotated_backward", 0), rows)
+        entry["max_abs_err"] = max(r["err"] for r in k1b_rows + k1b_edge)
         kernels.append(entry)
     log(f"kernel times are per image at the main-path shapes (bfloat16; K1 summed over its "
         f"three poolers), launches over {per_image} main-path images, on {card}")

@@ -43,8 +43,8 @@ class FastRCNNConvFCHead(nn.Module):
         """x: (R, ph, pw, C) pooled features -> (R, FC_DIM); flattened in
         PyTorch's NCHW order, as the released checkpoints expect."""
         x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
-        x = torch.relu(L.linear(x, self.fc1.weight, self.fc1.bias))
-        return torch.relu(L.linear(x, self.fc2.weight, self.fc2.bias))
+        x = L.relu(L.linear(x, self.fc1.weight, self.fc1.bias))
+        return L.relu(L.linear(x, self.fc2.weight, self.fc2.bias))
 
 
 class RotatedFastRCNNOutputLayers(nn.Module):

@@ -1,7 +1,7 @@
 """Conv + norm building blocks with detectron2's parameter names.
 
 Counterpart of ``glass_tpu/models/context.py`` (``conv_norm`` /
-``apply_bn``) for inference: a d2 ``Conv2d`` carries its norm as a ``norm``
+``apply_bn``): a d2 ``Conv2d`` carries its norm as a ``norm``
 child, so a released checkpoint's ``<conv>.weight`` and
 ``<conv>.norm.{weight,bias,running_mean,running_var}`` load unchanged.
 """
@@ -15,7 +15,10 @@ from . import layers as L
 
 
 class BatchNorm2d(nn.Module):
-    """Eval-mode batch norm with PyTorch/d2 parameter names."""
+    """Batch norm with PyTorch/d2 parameter names: running statistics in
+    eval mode; in training mode (``module.train()``) batch statistics, with
+    the running statistics updated in place (``L.batch_norm_train``, the
+    arithmetic of glass_tpu's ``batch_norm(train=True)``)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -26,6 +29,9 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
+        if self.training:
+            return L.batch_norm_train(x, self.weight, self.bias, self.running_mean,
+                                      self.running_var, self.eps)
         return L.batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var, self.eps)
 
 
@@ -44,7 +50,7 @@ class Conv2d(nn.Conv2d):
         out = L.conv2d(x, self.weight, self.bias, self.stride, self.padding)
         if hasattr(self, "norm"):
             out = self.norm(out)
-        return torch.relu(out) if self.relu else out
+        return L.relu(out) if self.relu else out
 
 
 def conv_norm(cin, cout, kernel_size, stride=1, padding=0, relu=False) -> Conv2d:

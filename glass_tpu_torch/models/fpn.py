@@ -21,9 +21,9 @@ _STAGES = ("res2", "res3", "res4", "res5")
 
 
 class ResNetFPN(nn.Module):
-    def __init__(self, out_channels: int = 256):
+    def __init__(self, out_channels: int = 256, freeze_at: int = 0):
         super().__init__()
-        self.bottom_up = ResNet50()
+        self.bottom_up = ResNet50(freeze_at)
         for i, s in enumerate(_STAGES, start=2):
             setattr(self, f"fpn_lateral{i}", conv_norm(STAGE_CHANNELS[s], out_channels, 1))
             setattr(self, f"fpn_output{i}", conv_norm(out_channels, out_channels, 3, 1, 1))

@@ -65,7 +65,7 @@ class MultiAspectGCAttention(nn.Module):
         context = torch.einsum("nkcp,nkp->nkc", xh, mask).reshape(n, c)
         c0, ln, _, c3 = self.channel_add_conv
         t = L.linear(context, c0.weight.reshape(-1, c), c0.bias)
-        t = torch.relu(L.layer_norm(t, ln.weight.reshape(-1), ln.bias.reshape(-1)))
+        t = L.relu(L.layer_norm(t, ln.weight.reshape(-1), ln.bias.reshape(-1)))
         t = L.linear(t, c3.weight.reshape(c, -1), c3.bias)
         out = x + t[:, :, None, None]
         return L.conv2d(out, self.out.weight, self.out.bias, padding=1)

@@ -56,10 +56,11 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torc
 @dataclass(frozen=True)
 class GlassArch:
     """Static architecture hyperparameters (derived from a CfgNode); the
-    fields and defaults of glass_tpu's ``GlassArch`` that inference reads.
-    Its backend choices (TPU.ROI_ALIGN_BACKEND, TPU.CROP_BACKEND) pick
-    TPU realisations of one function, which the port computes with its own
-    kernels; the training-only fields come with the training slice."""
+    fields and defaults of glass_tpu's ``GlassArch`` that inference and
+    training read.  Its backend choices (TPU.ROI_ALIGN_BACKEND,
+    TPU.CROP_BACKEND, TPU.STEM_BACKEND) pick TPU realisations of one
+    function, which the port computes with its own kernels and its plain
+    stem."""
 
     pixel_mean: Tuple[float, ...] = (103.53, 116.28, 123.675)
     pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0)
@@ -107,7 +108,9 @@ class GlassArch:
     mask_inference: bool = False
     mask_pooler_resolution: int = 14
     mask_num_conv: int = 4
+    freeze_at: int = 0
     compute_dtype: str = "float32"
+    remat_backbone: bool = False
     text_emit: str = "topk"
     mask_fetch_dtype: str = "float16"
 
@@ -181,7 +184,9 @@ class GlassArch:
             mask_inference=cfg.MODEL.ROI_MASK_HEAD.MASK_INFERENCE,
             mask_pooler_resolution=cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION,
             mask_num_conv=cfg.MODEL.ROI_MASK_HEAD.NUM_CONV,
+            freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
             compute_dtype=cfg.TPU.COMPUTE_DTYPE,
+            remat_backbone=cfg.TPU.REMAT_BACKBONE,
             text_emit=cfg.TPU.TEXT_EMIT,
             mask_fetch_dtype=cfg.TPU.MASK_FETCH_DTYPE,
         )
@@ -195,8 +200,19 @@ class GlassArch:
         return _DTYPES[self.compute_dtype]
 
 
-def _check_ported(arch: GlassArch) -> None:
-    """Options of later slices fail loudly instead of running a different model."""
+def _check_ported(arch: GlassArch, train: bool = False) -> None:
+    """Options of later slices fail loudly instead of running a different
+    model; ``train`` adds the options the training path does not port."""
+    if train and arch.remat_backbone:
+        raise NotImplementedError(
+            "TPU.REMAT_BACKBONE is not ported to glass_tpu_torch yet "
+            "(ROADMAP item 11, what waits: backbone rematerialization)"
+        )
+    if train and (arch.recognizer_decoder == "CTC" or arch.pooler_pad == "FeatPadV2"):
+        raise NotImplementedError(
+            "CTC and FeatPadV2 training are not ported to glass_tpu_torch yet; they come "
+            "with their inference variants (ROADMAP item 10)"
+        )
     unported = {
         "RECOGNIZER_HEAD.POOLER_PAD": (arch.pooler_pad, ("",)),
         "RECOGNIZER_HEAD.BACKBONE": (arch.recognizer_backbone, ("CNN_V1_1", "CNN_V1")),
@@ -222,7 +238,7 @@ class GlassRCNN(nn.Module):
         super().__init__()
         _check_ported(arch)
         self.arch = arch
-        self.backbone = ResNetFPN(256)
+        self.backbone = ResNetFPN(256, arch.freeze_at)
         self.proposal_generator = nn.Module()
         self.proposal_generator.rpn_head = rpn_mod.StandardRPNHead(256, arch.num_anchors)
         rh = nn.Module()
@@ -271,14 +287,16 @@ def nhwc(feature: torch.Tensor) -> torch.Tensor:
 
 
 def preprocess(model: GlassRCNN, image: torch.Tensor) -> torch.Tensor:
-    """(H, W, 3) raw BGR 0-255 -> normalized, in the compute dtype."""
+    """(..., H, W, 3) raw BGR 0-255 -> normalized, in the compute dtype."""
     norm = (image.to(torch.float32) - model.pixel_mean) / model.pixel_std
     return norm.to(model.arch.torch_dtype)
 
 
 def backbone_features(model: GlassRCNN, norm: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """norm (H, W, 3) -> {p2..p6} as (1, C, h, w) in channels-last memory."""
-    x = norm.permute(2, 0, 1)[None].contiguous(memory_format=torch.channels_last)
+    """norm (H, W, 3) or a batch (B, H, W, 3) -> {p2..p6} as (B, C, h, w)
+    (B = 1 for one image) in channels-last memory."""
+    x = norm[None] if norm.dim() == 3 else norm
+    x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     return model.backbone(x)
 
 

@@ -1,4 +1,4 @@
-"""Inference forms of the neural-net primitives, in PyTorch.
+"""The neural-net primitives, in PyTorch.
 
 Counterpart of ``glass_tpu/models/layers.py``.  Activations are NCHW
 tensors (kept in channels-last memory on the backbone path, so a feature
@@ -34,6 +34,13 @@ def linear(x, weight, bias=None):
     return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
+def relu(x):
+    """glass_tpu's ReLU, ``jnp.maximum(x, 0)``: the gradient at x == 0 is
+    1/2 (a tie of the maximum splits it), where ``torch.relu``'s is 0.
+    ``torch.maximum`` splits ties the same way."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
 def max_pool2d(x, kernel, stride=None, padding=0):
     return F.max_pool2d(x, kernel, stride, padding)
 
@@ -50,6 +57,29 @@ def batch_norm(x, weight, bias, running_mean, running_var, eps: float = 1e-5):
     shift = (bias - running_mean * weight / denom).to(x.dtype)
     shape = (1, -1) + (1,) * (x.dim() - 2)
     return x * scale.reshape(shape) + shift.reshape(shape)
+
+
+def batch_norm_train(x, weight, bias, running_mean, running_var, eps: float = 1e-5,
+                     momentum: float = 0.1):
+    """Training-mode BatchNorm over dim 1 with glass_tpu's arithmetic: mean
+    and mean of squares in f32 over the whole batch (padding included), the
+    biased variance to normalize, ``(x - mean) * inv + b`` in the activation
+    dtype, and the running statistics EMA-updated in place with the
+    *unbiased* variance."""
+    dims = (0,) + tuple(range(2, x.dim()))
+    mean = torch.mean(x, dim=dims, dtype=torch.float32)
+    mean_sq = torch.mean(torch.square(x.to(torch.float32)), dim=dims)
+    var = mean_sq - mean ** 2
+    inv = weight / torch.sqrt(var + eps)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    out = (x - mean.to(x.dtype).reshape(shape)) * inv.to(x.dtype).reshape(shape) \
+        + bias.to(x.dtype).reshape(shape)
+    n = x.numel() // x.shape[1]
+    with torch.no_grad():
+        unbiased = var * n / max(n - 1, 1)
+        running_mean.copy_((1 - momentum) * running_mean + momentum * mean)
+        running_var.copy_((1 - momentum) * running_var + momentum * unbiased)
+    return out
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):

@@ -29,14 +29,14 @@ class BasicBlock(nn.Module):
             self.downsample = nn.Sequential(nn.Conv2d(cin, cout, 1, bias=False), BatchNorm2d(cout))
 
     def forward(self, x):
-        out = torch.relu(self.bn1(L.conv2d(x, self.conv1.weight, padding=1)))
+        out = L.relu(self.bn1(L.conv2d(x, self.conv1.weight, padding=1)))
         out = self.bn2(L.conv2d(out, self.conv2.weight, padding=1))
         if hasattr(self, "downsample"):
             conv, bn = self.downsample
             residual = bn(L.conv2d(x, conv.weight))
         else:
             residual = x
-        return torch.relu(out + residual)
+        return L.relu(out + residual)
 
 
 class LocalResNet(nn.Module):
@@ -68,7 +68,7 @@ class LocalResNet(nn.Module):
         self.bn4_1 = BatchNorm2d(block_ch[3])
 
     def _conv_bn_relu(self, x, conv, bn, **kw):
-        return torch.relu(bn(L.conv2d(x, conv.weight, **kw)))
+        return L.relu(bn(L.conv2d(x, conv.weight, **kw)))
 
     def forward(self, crops: torch.Tensor) -> torch.Tensor:
         """crops (N, 3, 128, 128) normalized -> (N, 256, 8, 32)."""

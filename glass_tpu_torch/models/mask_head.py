@@ -30,8 +30,8 @@ class MaskRCNNConvUpsampleHead(nn.Module):
         """x (N, C, 14, 14) -> mask logits (N, K, 28, 28)."""
         for i in range(self.num_conv):
             conv = getattr(self, f"mask_fcn{i + 1}")
-            x = torch.relu(L.conv2d(x, conv.weight, conv.bias, padding=1))
-        x = torch.relu(L.conv_transpose2d(x, self.deconv.weight, self.deconv.bias, 2))
+            x = L.relu(L.conv2d(x, conv.weight, conv.bias, padding=1))
+        x = L.relu(L.conv_transpose2d(x, self.deconv.weight, self.deconv.bias, 2))
         return L.conv2d(x, self.predictor.weight, self.predictor.bias)
 
 

@@ -109,6 +109,25 @@ class RecognizerHead(nn.Module):
         return self.encoder(self.backbone(fused))
 
 
+def aster_decode_train(decoder: DecoderUnit, x: torch.Tensor, targets: torch.Tensor,
+                       num_steps: int) -> torch.Tensor:
+    """Teacher-forced decode: logits (N, num_steps, V).  Step 0 feeds token
+    0 ([GO]); step i > 0 feeds ``targets[:, i]``, whose encoding carries the
+    leading GO slot (the reference's indexing, glass_tpu's
+    ``aster_decode_train``)."""
+    n = x.shape[0]
+    sdim = decoder.gru.weight_hh_l0.shape[1]
+    xe = decoder.attention_unit.xEmbed
+    x_proj = L.linear(x, xe.weight, xe.bias)
+    state = torch.zeros((n, sdim), dtype=x.dtype, device=x.device)
+    y_inputs = torch.cat([torch.zeros_like(targets[:, :1]), targets[:, 1:num_steps]], dim=1).long()
+    steps = []
+    for i in range(num_steps):
+        logits, state = decoder.step(x, x_proj, state, y_inputs[:, i])
+        steps.append(logits)
+    return torch.stack(steps, dim=1)
+
+
 def aster_decode_greedy(decoder: DecoderUnit, x: torch.Tensor, num_steps: int,
                         eos_index: int = 0) -> torch.Tensor:
     """Greedy decode: per-step softmax probabilities (N, num_steps, V).

@@ -1,8 +1,11 @@
 """ResNet-50 bottom-up backbone (detectron2 parameter names).
 
-Counterpart of ``glass_tpu/models/resnet.py`` at inference: the plain
-7x7/2 stem (glass_tpu uses its space-to-depth stems only for training),
-stride in the 1x1 conv of each block (d2 ``stride_in_1x1``).
+Counterpart of ``glass_tpu/models/resnet.py``: the plain 7x7/2 stem for
+every ``TPU.STEM_BACKEND`` (glass_tpu's space-to-depth training stems are
+the same function, laid out for the TPU's matrix unit), stride in the 1x1
+conv of each block (d2 ``stride_in_1x1``), and d2's
+``MODEL.BACKBONE.FREEZE_AT``: in training the frozen stages run their BN on
+the running statistics and take no gradient.
 """
 
 from __future__ import annotations
@@ -37,12 +40,13 @@ class BottleneckBlock(nn.Module):
     def forward(self, x):
         out = self.conv3(self.conv2(self.conv1(x)))
         shortcut = self.shortcut(x) if hasattr(self, "shortcut") else x
-        return torch.relu(out + shortcut)
+        return L.relu(out + shortcut)
 
 
 class ResNet50(nn.Module):
-    def __init__(self):
+    def __init__(self, freeze_at: int = 0):
         super().__init__()
+        self.freeze_at = freeze_at
         stem = nn.Module()
         stem.conv1 = conv_norm(3, 64, 7, 2, 3, relu=True)
         self.stem = stem
@@ -53,11 +57,24 @@ class ResNet50(nn.Module):
             setattr(self, name, nn.Sequential(*blocks))
             cin = cout
 
+    def _frozen(self, stage_index: int) -> bool:
+        """Stage 1 is the stem, 2 res2, ... (d2 ``freeze_at``)."""
+        return self.training and self.freeze_at >= stage_index
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        for i, stage in enumerate([self.stem] + [getattr(self, n) for n, *_ in RESNET50_STAGES], 1):
+            if self._frozen(i):
+                stage.eval()  # FrozenBN: running statistics, no update
+        return self
+
     def forward(self, x) -> Dict[str, torch.Tensor]:
         """x: (N, 3, H, W) normalized image -> res2..res5 (NCHW)."""
-        x = L.max_pool2d(self.stem.conv1(x), 3, 2, 1)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not self._frozen(1)):
+            x = L.max_pool2d(self.stem.conv1(x), 3, 2, 1)
         feats = {}
-        for name, *_ in RESNET50_STAGES:
-            x = getattr(self, name)(x)
+        for i, (name, *_) in enumerate(RESNET50_STAGES, 2):
+            with torch.set_grad_enabled(torch.is_grad_enabled() and not self._frozen(i)):
+                x = getattr(self, name)(x)
             feats[name] = x
         return feats

@@ -71,7 +71,7 @@ class StandardRPNHead(nn.Module):
         ``generate_anchors_for_level``."""
         logits, deltas = [], []
         for f in features:
-            t = torch.relu(L.conv2d(f, self.conv.weight, self.conv.bias, padding=1))
+            t = L.relu(L.conv2d(f, self.conv.weight, self.conv.bias, padding=1))
             obj = L.conv2d(t, self.objectness_logits.weight, self.objectness_logits.bias)
             dlt = L.conv2d(t, self.anchor_deltas.weight, self.anchor_deltas.bias)
             n = obj.shape[0]

@@ -61,6 +61,19 @@ def nonempty(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
     return (boxes[..., 2] > threshold) & (boxes[..., 3] > threshold)
 
 
+def get_deltas(src: torch.Tensor, target: torch.Tensor, weights: Sequence[float]) -> torch.Tensor:
+    """Rotated box2box encode (detectron2 ``Box2BoxTransformRotated``)."""
+    wx, wy, ww, wh, wa = weights
+    sx, sy, sw, sh, sa = src.unbind(-1)
+    tx, ty, tw, th, ta = target.unbind(-1)
+    dx = wx * (tx - sx) / sw
+    dy = wy * (ty - sy) / sh
+    dw = ww * torch.log(tw / sw)
+    dh = wh * torch.log(th / sh)
+    da = normalize_angle(ta - sa) * wa * math.pi / 180.0
+    return torch.stack([dx, dy, dw, dh, da], dim=-1)
+
+
 def apply_deltas(
     deltas: torch.Tensor, boxes: torch.Tensor, weights: Sequence[float]
 ) -> torch.Tensor:

@@ -41,6 +41,7 @@ import torch
 from . import _cuda
 
 KERNEL = "roi_align_rotated"
+BACKWARD_KERNEL = "roi_align_rotated_backward"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VECTOR_BYTES = 16
 
@@ -55,27 +56,38 @@ def _grid_pair(g):
 
 class PackedPyramid(NamedTuple):
     """Level maps concatenated row-wise: ``flat`` (sum HW, C) and ``meta``
-    (L, 4) f32 rows ``(spatial scale, H, W, row offset)``."""
+    f32 rows ``(spatial scale, H, W, row offset)``, one per (image, level),
+    image-major, ``levels_per_image`` levels an image."""
 
     flat: torch.Tensor
     meta: torch.Tensor
+    levels_per_image: int
 
 
 def pack_pyramid(features: Sequence[torch.Tensor], scales: Sequence[float]) -> PackedPyramid:
-    """features: list of (H_l, W_l, C) maps; scales: per-level spatial scale.
-    One level is a view of its map when that map is contiguous; several
-    levels are copied into one buffer."""
-    channels = features[0].shape[-1]
-    rows, off = [], 0
+    """features: list of (H_l, W_l, C) maps of one image; scales: per-level
+    spatial scale.  One level is a view of its map when that map is
+    contiguous; several levels are copied into one buffer."""
+    return pack_batch_pyramid([f[None] for f in features], scales)
+
+
+def pack_batch_pyramid(features: Sequence[torch.Tensor], scales: Sequence[float]) -> PackedPyramid:
+    """features: list over levels of (B, H_l, W_l, C) maps (the NHWC view of
+    a channels-last (B, C, H, W) map is a contiguous (B H W, C) block);
+    scales: per-level spatial scale.  Meta row ``b * L + l`` is level l of
+    image b, so one launch pools the rois of every image."""
+    b, channels = features[0].shape[0], features[0].shape[-1]
+    levels, off = [], 0
     for f, s in zip(features, scales):
-        rows.append([float(s), float(f.shape[0]), float(f.shape[1]), float(off)])
-        off += f.shape[0] * f.shape[1]
-    if len(features) == 1:
-        flat = features[0].reshape(-1, channels)
-    else:
-        flat = torch.cat([f.reshape(-1, channels) for f in features], dim=0)
-    meta = torch.tensor(rows, dtype=torch.float32, device=flat.device)
-    return PackedPyramid(flat, meta)
+        levels.append((float(s), f.shape[1], f.shape[2], off))
+        off += f.shape[0] * f.shape[1] * f.shape[2]
+    meta = torch.tensor(
+        [[s, float(h), float(w), float(o + i * h * w)] for i in range(b) for s, h, w, o in levels],
+        dtype=torch.float32, device=features[0].device,
+    )
+    blocks = [f.reshape(-1, channels) for f in features]
+    flat = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=0)
+    return PackedPyramid(flat, meta, len(features))
 
 
 def _scaled_extent(rois: torch.Tensor, meta: torch.Tensor, levels: torch.Tensor):
@@ -96,18 +108,23 @@ def adaptive_grid(rh, rw, output_size, cap) -> torch.Tensor:
     return torch.stack([g_h, g_w], dim=1).to(torch.int32)
 
 
-def split_grid(rh, rw, output_size, bulk, max_sampling_ratio, large_roi_budget) -> torch.Tensor:
+def split_grid(rh, rw, output_size, bulk, max_sampling_ratio, large_roi_budget,
+               rois_per_image: int = 0) -> torch.Tensor:
     """glass_tpu's split-capacity adaptive grid as one per-roi table: the
     bulk grid for every roi, the full ``max_sampling_ratio`` grid for the
     first ``large_roi_budget`` rois (by index) whose d2 grid exceeds the
-    bulk grid.  Large rois beyond the budget keep the bulk grid."""
+    bulk grid.  Large rois beyond the budget keep the bulk grid.  With
+    ``rois_per_image`` the rois are image-major blocks of that size and each
+    image has its own budget, as glass_tpu's per-image pooler calls."""
     ph, pw = output_size
     bh, bw = _grid_pair(bulk)
     grid = adaptive_grid(rh, rw, output_size, (bh, bw))
     fine = adaptive_grid(rh, rw, output_size, max_sampling_ratio)
     is_large = (torch.ceil(rh / ph) > bh) | (torch.ceil(rw / pw) > bw)
-    budget = min(int(large_roi_budget), rh.shape[0])
-    chosen = is_large & (torch.cumsum(is_large.to(torch.int32), 0) <= budget)
+    block = rois_per_image or max(rh.shape[0], 1)
+    budget = min(int(large_roi_budget), block)
+    rank = torch.cumsum(is_large.to(torch.int32).reshape(-1, block), 1).reshape(-1)
+    chosen = is_large & (rank <= budget)
     return torch.where(chosen[:, None], fine, grid)
 
 
@@ -148,13 +165,79 @@ def roi_align_rotated_packed(
     """Pool (R, ph, pw, C) from a packed pyramid, in the feature dtype.
 
     flat (sum HW, C); meta (L, 4) f32; rois (R, 5); levels (R,) int;
-    grid (R, 2) int per-roi sampling grid.
+    grid (R, 2) int per-roi sampling grid.  Differentiable in ``flat``
+    (``RoIAlignRotatedFunction``: K1 forward, K1b backward); the rois carry
+    no gradient.
     """
-    rois = rois.to(torch.float32)
+    rois = rois.detach().to(torch.float32)
     levels = levels.to(torch.int32)
     grid = grid.to(torch.int32)
     meta = meta.to(torch.float32)
     _check(flat, meta, rois, levels, grid)
+    if torch.is_grad_enabled() and flat.requires_grad:
+        return RoIAlignRotatedFunction.apply(flat, meta, rois, levels, grid, tuple(output_size))
+    return _pool_forward(flat, meta, rois, levels, grid, output_size)
+
+
+class RoIAlignRotatedFunction(torch.autograd.Function):
+    """The packed pooler as an autograd function: forward K1, backward K1b
+    (each, on a CPU tensor, its plain version)."""
+
+    @staticmethod
+    def forward(ctx, flat, meta, rois, levels, grid, output_size):
+        ctx.save_for_backward(meta, rois, levels, grid)
+        ctx.n_rows, ctx.dtype = flat.shape[0], flat.dtype
+        return _pool_forward(flat, meta, rois, levels, grid, output_size)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        meta, rois, levels, grid = ctx.saved_tensors
+        grad = roi_align_rotated_packed_backward(grad_out, meta, rois, levels, grid, ctx.n_rows)
+        return grad.to(ctx.dtype), None, None, None, None, None
+
+
+def roi_align_rotated_packed_backward(grad_out, meta, rois, levels, grid, n_rows):
+    """The (n_rows, C) f32 gradient of the packed features for the upstream
+    gradient (R, ph, pw, C) of ``roi_align_rotated_packed``."""
+    if grad_out.device.type == "cpu":
+        return roi_align_rotated_packed_backward_plain(grad_out, meta, rois, levels, grid, n_rows)
+    if grad_out.device.type != "cuda":
+        raise ValueError(f"unsupported device {grad_out.device}")
+    if grad_out.dtype not in _DTYPES:
+        raise TypeError(f"the gradient must be float32 or bfloat16, got {grad_out.dtype}")
+    r, ph, pw, c = grad_out.shape
+    if c % vector_width(grad_out.dtype):
+        raise ValueError(f"the kernel needs C a multiple of {vector_width(grad_out.dtype)}, got C={c}")
+    grad_out, meta, rois, levels, grid = (
+        t.contiguous() for t in (grad_out, meta, rois, levels, grid)
+    )
+    if grad_out.data_ptr() % VECTOR_BYTES:
+        raise ValueError("the kernel needs a 16-byte aligned gradient")
+    grad = torch.zeros((int(n_rows), c), dtype=torch.float32, device=grad_out.device)
+    if r == 0:
+        return grad
+    lib = _load_backward()
+    status = lib.glass_roi_align_rotated_backward(
+        grad_out.data_ptr(), _DTYPES[grad_out.dtype], c, rois.data_ptr(), meta.data_ptr(),
+        levels.data_ptr(), grid.data_ptr(), r, ph, pw, grad.data_ptr(),
+        _cuda.current_stream(grad_out.device),
+    )
+    _cuda.check_status(BACKWARD_KERNEL, status)
+    _cuda.LAUNCHES[BACKWARD_KERNEL] += 1
+    return grad
+
+
+def _load_backward():
+    lib = _cuda.load(BACKWARD_KERNEL)
+    fn = lib.glass_roi_align_rotated_backward
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, i, p, p, p, p, i, i, i, p, p]
+        fn.restype = i
+    return lib
+
+
+def _pool_forward(flat, meta, rois, levels, grid, output_size):
     if flat.device.type == "cpu":
         return roi_align_rotated_packed_plain(flat, meta, rois, levels, grid, output_size)
     _check_channels(flat)
@@ -215,28 +298,15 @@ def bilinear_plain(y, x, height, width, count):
     return (yi, xi, yi1, xi1), ws
 
 
-def sample_grid_plain(
-    image_rows: torch.Tensor,
-    meta: torch.Tensor,
-    rois: torch.Tensor,
-    levels: torch.Tensor,
-    grid: torch.Tensor,
-    output_size,
-    normalize=None,
-) -> torch.Tensor:
-    """The arithmetic of both kernels in plain PyTorch: (R, ph, pw, C) f32.
-
-    image_rows: (sum HW, C) rows of any dtype (taps are read in f32).
-    normalize: optional (mean, std) per-channel f32 tensors; each sample's
-    contribution becomes (sum w * v - sum w * mean) / std.
-    """
+def plain_samples(meta, rois, levels, grid, output_size):
+    """The samples of every bin in the kernels' order: yields, per grid
+    position (iy, ix), the four tap rows (R, ph, pw) int64 into the packed
+    rows and their weights (divided by the bin's count, zero for a sample
+    outside the map or beyond the roi's own grid)."""
+    if rois.shape[0] == 0:
+        return
     ph_n, pw_n = (int(v) for v in output_size)
-    r = rois.shape[0]
-    c = image_rows.shape[1]
-    dev = image_rows.device
-    out = torch.zeros((r, ph_n, pw_n, c), dtype=torch.float32, device=dev)
-    if r == 0:
-        return out
+    dev = rois.device
     m = meta[levels.long()]
     scale, height, width, base = m[:, 0], m[:, 1], m[:, 2], m[:, 3].to(torch.int64)
     cx = rois[:, 0] * scale - 0.5
@@ -274,20 +344,60 @@ def sample_grid_plain(
             on = col((iy < grid[:, 0]) & (ix < grid[:, 1]))
             ws = [torch.where(on, w, torch.zeros_like(w)) for w in ws]
             idx = [b_r + a * w_r + b for a, b in ((yi, xi), (yi, xi1), (yi1, xi), (yi1, xi1))]
-            taps = [image_rows[i.reshape(-1)].to(torch.float32).reshape(r, ph_n, pw_n, c) for i in idx]
-            v = ((taps[0] * ws[0][..., None] + taps[1] * ws[1][..., None])
-                 + taps[2] * ws[2][..., None]) + taps[3] * ws[3][..., None]
-            if normalize is not None:
-                mean, std = normalize
-                wsum = ((ws[0] + ws[1]) + ws[2]) + ws[3]
-                v = (v - wsum[..., None] * mean) / std
-            out = out + v
+            yield idx, ws
+
+
+def sample_grid_plain(
+    image_rows: torch.Tensor,
+    meta: torch.Tensor,
+    rois: torch.Tensor,
+    levels: torch.Tensor,
+    grid: torch.Tensor,
+    output_size,
+    normalize=None,
+) -> torch.Tensor:
+    """The arithmetic of both kernels in plain PyTorch: (R, ph, pw, C) f32.
+
+    image_rows: (sum HW, C) rows of any dtype (taps are read in f32).
+    normalize: optional (mean, std) per-channel f32 tensors; each sample's
+    contribution becomes (sum w * v - sum w * mean) / std.
+    """
+    ph_n, pw_n = (int(v) for v in output_size)
+    r = rois.shape[0]
+    c = image_rows.shape[1]
+    out = torch.zeros((r, ph_n, pw_n, c), dtype=torch.float32, device=image_rows.device)
+    if r == 0:
+        return out
+    for idx, ws in plain_samples(meta, rois, levels, grid, output_size):
+        taps = [image_rows[i.reshape(-1)].to(torch.float32).reshape(r, ph_n, pw_n, c) for i in idx]
+        v = ((taps[0] * ws[0][..., None] + taps[1] * ws[1][..., None])
+             + taps[2] * ws[2][..., None]) + taps[3] * ws[3][..., None]
+        if normalize is not None:
+            mean, std = normalize
+            wsum = ((ws[0] + ws[1]) + ws[2]) + ws[3]
+            v = (v - wsum[..., None] * mean) / std
+        out = out + v
     return out
 
 
 def roi_align_rotated_packed_plain(flat, meta, rois, levels, grid, output_size):
     """Plain PyTorch version of K1: f32 accumulation, output in flat.dtype."""
     return sample_grid_plain(flat, meta, rois, levels, grid, output_size).to(flat.dtype)
+
+
+def roi_align_rotated_packed_backward_plain(grad_out, meta, rois, levels, grid, n_rows):
+    """Plain PyTorch version of K1b: the (n_rows, C) f32 gradient of the
+    packed features, every sample's ``w * grad_out`` added into its four tap
+    rows with ``index_add_``, in the order of ``sample_grid_plain``."""
+    r, c = grad_out.shape[0], grad_out.shape[-1]
+    grad = torch.zeros((int(n_rows), c), dtype=torch.float32, device=grad_out.device)
+    if r == 0:
+        return grad
+    g = grad_out.to(torch.float32)
+    for idx, ws in plain_samples(meta, rois, levels, grid, grad_out.shape[1:3]):
+        for i, w in zip(idx, ws):
+            grad.index_add_(0, i.reshape(-1), (w[..., None] * g).reshape(-1, c))
+    return grad
 
 
 # ---------------------------------------------------------------------------
@@ -362,11 +472,17 @@ def multilevel_pool(
     max_sampling_ratio=4,
     bulk_sampling_ratio=0,
     large_roi_budget: int = 16,
+    rois_per_image: int = 0,
 ) -> torch.Tensor:
-    """detectron2 multi-level ``ROIPooler`` over an already packed pyramid."""
+    """detectron2 multi-level ``ROIPooler`` over an already packed pyramid.
+    Over a batch's pyramid the rois are image-major blocks of
+    ``rois_per_image``, each pooled from its own image (0: one image)."""
     rois = rois.to(torch.float32)
-    n_levels = pyr.meta.shape[0]
+    n_levels = pyr.levels_per_image
     levels = assign_boxes_to_levels(rois, min_level, min_level + n_levels - 1)
+    if rois_per_image:
+        image = torch.arange(rois.shape[0], device=rois.device) // rois_per_image
+        levels = levels + (image * n_levels).to(torch.int32)
     bh, bw = _grid_pair(bulk_sampling_ratio)
     mh, mw = _grid_pair(max_sampling_ratio)
     split = sampling_ratio == 0 and bh > 0 and bw > 0 and (bh < mh or bw < mw)
@@ -375,7 +491,8 @@ def multilevel_pool(
     else:
         rh, rw = _scaled_extent(rois, pyr.meta, levels)
         if split:
-            grid = split_grid(rh, rw, output_size, (bh, bw), (mh, mw), large_roi_budget)
+            grid = split_grid(rh, rw, output_size, (bh, bw), (mh, mw), large_roi_budget,
+                              rois_per_image)
         else:
             grid = adaptive_grid(rh, rw, output_size, (mh, mw))
     return roi_align_rotated_packed(pyr.flat, pyr.meta, rois, levels, grid, output_size)
