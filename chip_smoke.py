@@ -45,9 +45,16 @@ Phases:
      against its plain PyTorch version at the training shapes (an 832x1440
      bucket, C=256, the box, mask and recognizer poolers with 512, 128 and
      8 rois) in float32 and bfloat16, beside K1's forward at the same
-     shapes; edge cases 0 and 1 roi, rois straddling the border and 512
-     rois on one pixel.  The tolerance is the bound of two reordered f32
-     sums (the kernel's atomics add in another order).
+     shapes; edge cases 0 and 1 roi, rois straddling the border, 512 rois
+     on one pixel and long rotated words on the recognizer's level (tiles
+     on the direct path).  The f32 output's tolerance is the bound of two
+     reordered f32 sums (the kernels' atomics add in another order); the
+     bf16 output is held to the plain f32 result rounded to bf16 within
+     that bound plus one bf16 ulp.  Prints per case the direct-path tiles,
+     the whole backward's time (output in the features' dtype), the time
+     with an f32 output, the dense-output bound (the upstream gradient read
+     and every packed row written once) and the touched-rows bound (a
+     read-modify-write of every touched f32 row).
   8. the training path: ``python -m glass_tpu_torch.train`` run in-process
      (``glass_tpu_torch.train.main``) on the ICDAR15 finetune configuration
      at bfloat16 over a synthetic training set of phase 6's glyph scenes:
@@ -1159,42 +1166,87 @@ def _row_contributions(meta, rois, levels, grid, out_hw, n_rows):
     return counts
 
 
-def k1b_case(label, pyr, rois, levels, grid, out_hw, rng, timed=True):
+def _bf16_spacing(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 numbers at |x| (8 significant bits); 0 at 0."""
+    _, e = torch.frexp(x.abs())
+    return torch.where(x == 0, torch.zeros_like(x), torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def k1b_reference(meta, rois, levels, grid, out_hw, n_rows, grad_out):
+    """K1b's plain f32 result, its per-element tolerance 2 n 2^-24 sum|w g|
+    (n the row's contributions: the bound of two reordered f32 sums) and
+    the contributions a row."""
+    from glass_tpu_torch.ops import roi_align_rotated as ra
+
+    ref = ra.roi_align_rotated_packed_backward_plain(grad_out, meta, rois, levels, grid, n_rows)
+    mag = ra.roi_align_rotated_packed_backward_plain(grad_out.abs(), meta, rois, levels, grid, n_rows)
+    counts = _row_contributions(meta, rois, levels, grid, out_hw, n_rows)
+    return ref, 2.0 * counts[:, None] * 2.0 ** -24 * mag + 1e-30, counts
+
+
+def k1b_excess(got, ref, tol) -> float:
+    """How far K1b's output exceeds its bound (<= 0 passes): f32 within
+    ``tol`` of the plain f32 result; bf16 against that result rounded to
+    bf16, within ``tol`` plus one bf16 ulp of the reference (two roundings
+    of sums that differ may differ by one ulp)."""
+    if got.dtype == torch.float32:
+        return ((got - ref).abs() - tol).max().item()
+    ref_b = ref.to(got.dtype).float()
+    return ((got.float() - ref_b).abs() - tol - _bf16_spacing(ref.abs() + tol)).max().item()
+
+
+def k1b_case(label, pyr, rois, levels, grid, out_hw, rng, timed=True, want_direct=False):
     """K1b against its plain version on one upstream gradient in the
-    features' dtype.  Both add the same f32 terms w * g; the kernel's
-    atomics add them in another order, so the tolerance per element is
-    2 n 2^-24 sum|w g| (n the row's contributions), the bound of two
-    reordered f32 sums."""
+    features' dtype, with an f32 output and, for bf16 features, a bf16
+    output (``k1b_excess``).  Every tap must lie in its tile's footprint
+    (stats[1] == 0)."""
     from glass_tpu_torch.ops import roi_align_rotated as ra
 
     dtype, c, n_rows = pyr.flat.dtype, pyr.flat.shape[1], pyr.flat.shape[0]
     grad_out = torch.from_numpy(rng.randn(rois.shape[0], *out_hw, c).astype(np.float32)).cuda().to(dtype)
-    launch = lambda: ra.roi_align_rotated_packed_backward(grad_out, pyr.meta, rois, levels, grid, n_rows)  # noqa: E731
-    got = launch()
-    ref = ra.roi_align_rotated_packed_backward_plain(grad_out, pyr.meta, rois, levels, grid, n_rows)
-    mag = ra.roi_align_rotated_packed_backward_plain(grad_out.abs(), pyr.meta, rois, levels, grid, n_rows)
-    counts = _row_contributions(pyr.meta, rois, levels, grid, out_hw, n_rows)
+
+    def launch(out_dtype=dtype, stats=False):
+        return ra.roi_align_rotated_packed_backward(grad_out, pyr.meta, rois, levels, grid, n_rows,
+                                                    out_dtype=out_dtype, return_stats=stats)
+
+    got32, stats = launch(torch.float32, True)
+    got = launch() if dtype != torch.float32 else got32
+    ref, tol, counts = k1b_reference(pyr.meta, rois, levels, grid, out_hw, n_rows, grad_out)
+    tile = ra.backward_tile(rois.shape[0], out_hw, torch.cuda.get_device_properties(0).multi_processor_count)
+    plain_direct = ra.backward_direct_tiles(pyr.meta, rois, levels, grid, out_hw, tile)
     torch.cuda.synchronize()
-    tol = 2.0 * counts[:, None] * 2.0 ** -24 * mag + 1e-30
-    excess = ((got - ref).abs() - tol).max().item() if rois.shape[0] else 0.0
-    err = _max_err(got, ref)
+    direct, escaped = stats.tolist()
+    excess = max(k1b_excess(got32, ref, tol), k1b_excess(got, ref, tol)) if rois.shape[0] else 0.0
+    err = max(_max_err(got32, ref), _max_err(got, ref.to(dtype)))
     rel_tol = float((tol.max()).item()) if rois.shape[0] else 0.0
-    row = dict(pooler=label, dtype=str(dtype).split(".")[1], err=err, tol=rel_tol, rois=int(rois.shape[0]))
-    text = (f"K1b {label:22s} {out_hw} {row['dtype']:8s} R={rois.shape[0]:3d} max|err| {err:.3g} "
-            f"(per-element tol up to {rel_tol:.3g}; max contributions a row {int(counts.max()) if rois.shape[0] else 0})")
+    row = dict(pooler=label, dtype=str(dtype).split(".")[1], err=err, tol=rel_tol, rois=int(rois.shape[0]),
+               direct=direct)
+    text = (f"K1b {label:26s} {out_hw} {row['dtype']:8s} R={rois.shape[0]:3d} max|err| {err:.3g} "
+            f"(per-element tol up to {rel_tol:.3g}; max contributions a row "
+            f"{int(counts.max()) if rois.shape[0] else 0}); tiles of {tile[0]}x{tile[1]} bins, "
+            f"{direct} on the direct path (plain count {plain_direct})")
     if timed and rois.shape[0]:
         rows_touched = touched_rows(pyr.meta, rois, levels, grid, out_hw)
-        taps = int((counts).sum())
-        nbytes = grad_out.numel() * grad_out.element_size() + 2 * rows_touched * c * 4 + rois.numel() * 4
-        b_ms, b_by = bound(nbytes, taps * c * 2)
-        row.update(ms=kernel_ms(launch), call_ms=time_ms(launch, 50),
+        taps = int(counts.sum())
+        g_bytes = grad_out.numel() * grad_out.element_size()
+        old_ms, _ = bound(g_bytes + 2 * rows_touched * c * 4 + rois.numel() * 4, taps * c * 2)
+        b_ms, b_by = bound(g_bytes + n_rows * c * got.element_size(), taps * c * 2)
+        f32_ms = kernel_ms(lambda: launch(torch.float32))
+        row.update(ms=kernel_ms(launch) if dtype != torch.float32 else f32_ms, f32_ms=f32_ms,
+                   call_ms=time_ms(launch, 50),
                    plain_ms=time_ms(lambda: ra.roi_align_rotated_packed_backward_plain(
                        grad_out, pyr.meta, rois, levels, grid, n_rows), 3, 1),
-                   bound_ms=b_ms, bound_by=b_by, rows_touched=rows_touched, taps=taps)
-        text += (f" kernel {row['ms']:.4f} ms (wrapper call {row['call_ms']:.4f} ms, zeroing the "
-                 f"{n_rows}x{c} f32 buffer included) plain {row['plain_ms']:.3f} ms bound {b_ms:.4f} ms "
-                 f"({b_by}: {rows_touched} rows touched, {taps} taps), {100 * b_ms / row['ms']:.1f}% of it")
+                   bound_ms=b_ms, bound_by=b_by, old_bound_ms=old_ms, rows_touched=rows_touched, taps=taps)
+        text += (f"; whole backward (out {row['dtype']}) {row['ms']:.4f} ms, f32 out {f32_ms:.4f} ms "
+                 f"(wrapper call {row['call_ms']:.4f} ms) plain {row['plain_ms']:.3f} ms; dense-output "
+                 f"bound {b_ms:.4f} ms ({b_by}: {n_rows}x{c} rows written), {100 * b_ms / row['ms']:.1f}% "
+                 f"of it; old bound {old_ms:.4f} ms ({rows_touched} rows touched, {taps} taps), "
+                 f"{100 * old_ms / row['ms']:.1f}% of it")
     log(text)
+    if escaped:
+        raise AssertionError(f"K1b {label} {dtype}: {escaped} taps fell outside their footprint")
+    if want_direct and not direct:
+        raise AssertionError(f"K1b {label} {dtype}: no tile took the direct path")
     if not excess <= 0.0:
         raise AssertionError(f"K1b {label} {dtype}: error exceeds the reordering bound by {excess}")
     return row
@@ -1205,8 +1257,9 @@ def phase_k1b(rng):
     at the training shapes (an 832x1440 bucket, C = 256, the box, mask and
     recognizer poolers with 512, 128 and 8 rois) in f32 and bf16, K1's
     forward at the same shapes, then the edge cases: 0 and 1 roi, rois
-    straddling the border (clamped taps) and 512 rois on one pixel (every
-    atomic on the same rows)."""
+    straddling the border (clamped taps), 512 rois on one pixel (every
+    flush on the same rows; timed) and long rotated words on the
+    recognizer's single level (tiles on the direct path)."""
     h, w = TRAIN_BUCKET_HW
     fwd, bwd, edge = [], [], []
     for name, n in TRAIN_ROIS.items():
@@ -1220,6 +1273,8 @@ def phase_k1b(rng):
                        erng.uniform(16, w * 0.6, 64), erng.uniform(12, h * 0.4, 64),
                        erng.uniform(-180, 180, 64)], 1).astype(np.float32)
     one_pixel = np.tile(np.array([[w / 2 + 0.3, h / 2 + 0.7, 2.0, 2.0, 0.0]], np.float32), (512, 1))
+    long_words = np.array([[w / 2, h / 2, 3000.0, 900.0, 30.0],
+                           [w / 2 + 100.0, h / 2 - 50.0, 2800.0, 800.0, -50.0]], np.float32)
     for dtype in (torch.float32, torch.bfloat16):
         for name in ("box", "mask"):
             rois = torch.from_numpy(word_rois(erng, 8, h, w)).cuda()
@@ -1230,7 +1285,11 @@ def phase_k1b(rng):
         for label, arr in (("box border-straddling", border), ("box one pixel x512", one_pixel)):
             rois = torch.from_numpy(arr).cuda()
             pyr, levels, grid, out_hw = _train_pooler_inputs("box", erng, dtype, rois)
-            edge.append(k1b_case(label, pyr, rois, levels, grid, out_hw, erng, timed=False))
+            edge.append(k1b_case(label, pyr, rois, levels, grid, out_hw, erng, timed=arr is one_pixel))
+        rois = torch.from_numpy(long_words).cuda()
+        pyr, levels, grid, out_hw = _train_pooler_inputs("recognizer", erng, dtype, rois)
+        edge.append(k1b_case("recognizer long words", pyr, rois, levels, grid, out_hw, erng, timed=False,
+                             want_direct=True))
     return fwd, bwd, edge
 
 

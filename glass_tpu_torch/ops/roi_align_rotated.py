@@ -28,12 +28,19 @@ roi_align_rotated.cu``) or raises; on a CPU tensor it runs the plain
 version, which repeats the kernel's arithmetic in the same order.  The
 kernel takes C a multiple of its 16-byte vector (4 f32, 8 bf16 channels)
 and 16-byte aligned features; the wrapper raises on anything else.
+
+The pooler's feature gradient is kernel K1b (``csrc/roi_align_rotated_
+backward.cu``, behind ``RoIAlignRotatedFunction``): three kernels a call
+that pre-reduce each tile of bins' taps in shared memory and write the dense
+gradient once in the features' dtype; ``bin_tile_footprints`` is the plain
+version of how it sizes and places a tile's footprint.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import NamedTuple, Sequence
 
 import torch
@@ -44,6 +51,20 @@ KERNEL = "roi_align_rotated"
 BACKWARD_KERNEL = "roi_align_rotated_backward"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VECTOR_BYTES = 16
+# K1b's plan (csrc/roi_align_rotated_backward.cu): the map rows a bin
+# tile's footprint may span (its shared index map), the rounding slack
+# (pixels) the footprint's rectangle is widened by, the touched rows of 256
+# channels the shared accumulator holds a round, the rounds before a tile
+# takes the direct path, the samples a tile's table holds and the bins a
+# tile may hold.
+FOOTPRINT_ROWS = 2048
+FOOTPRINT_SLACK = 1.0 / 16.0
+SLOT_ROWS = 32
+SLOT_ROUNDS = 6
+TABLE_SAMPLES = 256
+TILE_BINS = 16
+UNIT_ROWS = 2  # packed rows one of K1b's mark flags covers
+CPU_PLAN_SMS = 132  # the H100's multiprocessors: the plan a CPU call's stats describe
 
 
 def _grid_pair(g):
@@ -192,39 +213,123 @@ class RoIAlignRotatedFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         meta, rois, levels, grid = ctx.saved_tensors
-        grad = roi_align_rotated_packed_backward(grad_out, meta, rois, levels, grid, ctx.n_rows)
-        return grad.to(ctx.dtype), None, None, None, None, None
+        grad = roi_align_rotated_packed_backward(grad_out, meta, rois, levels, grid, ctx.n_rows,
+                                                 out_dtype=ctx.dtype)
+        return grad, None, None, None, None, None
 
 
-def roi_align_rotated_packed_backward(grad_out, meta, rois, levels, grid, n_rows):
-    """The (n_rows, C) f32 gradient of the packed features for the upstream
-    gradient (R, ph, pw, C) of ``roi_align_rotated_packed``."""
+def backward_tile(r: int, out_hw, sms: int) -> tuple:
+    """K1b's tile of bins for ``r`` rois of a ``ph x pw`` pooler on a card
+    of ``sms`` multiprocessors: at most 8 bin rows (the rows split evenly)
+    by 2 columns, the rows halved while there are fewer tiles than four an
+    SM.  The training shapes on an H100 (512, 128 and 8 rois): 7x2, 7x2 and
+    1x2 bins."""
+    ph, pw = (int(v) for v in out_hw)
+    rows, cols = -(-ph // -(-ph // 8)), min(pw, 2)
+    while rows > 1 and r * -(-ph // rows) * -(-pw // cols) < 4 * sms:
+        rows = -(-rows // 2)
+    return rows, cols
+
+
+def backward_direct_tiles(meta, rois, levels, grid, out_hw, tile, footprint_rows=FOOTPRINT_ROWS,
+                          slot_rows=SLOT_ROWS) -> int:
+    """Plain count of the bin tiles that K1b sends to the direct path: a
+    footprint above ``footprint_rows``, more samples than ``TABLE_SAMPLES``,
+    or more touched rows than ``SLOT_ROUNDS`` rounds of ``slot_rows``."""
+    r = rois.shape[0]
+    if r == 0:
+        return 0
+    fp = bin_tile_footprints(meta, rois, levels, grid, out_hw, tile, footprint_rows)
+    ph, pw = (int(v) for v in out_hw)
+    th, tw = (int(v) for v in tile)
+    tiles_w = -(-pw // tw)
+    n_tiles = fp.y0.shape[1]
+    dev = rois.device
+    tile_of = ((torch.arange(ph, device=dev)[:, None] // th) * tiles_w
+               + torch.arange(pw, device=dev)[None] // tw)
+    bins = torch.bincount(tile_of.reshape(-1), minlength=n_tiles)
+    samples = grid[:, :1].long() * grid[:, 1:].long() * bins[None]
+    keys = []
+    for idx, ws in plain_samples(meta, rois, levels, grid, out_hw):
+        for i, w in zip(idx, ws):
+            ri, a, b = torch.nonzero(w != 0, as_tuple=True)
+            keys.append(torch.stack([ri * n_tiles + tile_of[a, b], i[ri, a, b]], 1))
+    touched = torch.zeros(r * n_tiles, dtype=torch.int64, device=dev)
+    if keys:
+        pairs = torch.unique(torch.cat(keys), dim=0)
+        touched = torch.bincount(pairs[:, 0], minlength=r * n_tiles)
+    nonempty = (fp.y1 >= fp.y0) & (grid[:, :1] > 0) & (grid[:, 1:] > 0)
+    direct = fp.direct | (samples > TABLE_SAMPLES) | (touched.reshape(r, n_tiles) > SLOT_ROUNDS * slot_rows)
+    return int((direct & nonempty).sum())
+
+
+_flags: dict = {}
+_flags_lock = threading.Lock()
+
+
+def _unit_flags(device: torch.device, n_units: int) -> torch.Tensor:
+    """K1b's mark flags on the current stream: zero between calls (the
+    finishing kernel clears what the marking kernel set), so they are
+    allocated zeroed once per (device, stream) and size."""
+    key = (device.index, _cuda.current_stream(device))
+    with _flags_lock:
+        flags = _flags.get(key)
+        if flags is None or flags.numel() < n_units:
+            flags = torch.zeros(max(n_units, 1), dtype=torch.int32, device=device)
+            _flags[key] = flags
+        return flags
+
+
+def roi_align_rotated_packed_backward(grad_out, meta, rois, levels, grid, n_rows,
+                                      out_dtype=torch.float32, return_stats=False):
+    """The (n_rows, C) gradient of the packed features, in ``out_dtype``,
+    for the upstream gradient (R, ph, pw, C) of ``roi_align_rotated_packed``.
+
+    With ``return_stats`` also an int32 (2,) tensor on the gradient's device:
+    the bin tiles that took the direct path, and the taps found outside their
+    tile's footprint (0: the kernel drops such a tap).  Reading it syncs
+    with the host; the kernels do not."""
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"the output must be float32 or bfloat16, got {out_dtype}")
     if grad_out.device.type == "cpu":
-        return roi_align_rotated_packed_backward_plain(grad_out, meta, rois, levels, grid, n_rows)
+        grad = roi_align_rotated_packed_backward_plain(grad_out, meta, rois, levels, grid, n_rows)
+        grad = grad.to(out_dtype)
+        if not return_stats:
+            return grad
+        tile = backward_tile(rois.shape[0], grad_out.shape[1:3], CPU_PLAN_SMS)
+        direct = backward_direct_tiles(meta, rois, levels, grid, grad_out.shape[1:3], tile)
+        return grad, torch.tensor([direct, 0], dtype=torch.int32)
     if grad_out.device.type != "cuda":
         raise ValueError(f"unsupported device {grad_out.device}")
     if grad_out.dtype not in _DTYPES:
         raise TypeError(f"the gradient must be float32 or bfloat16, got {grad_out.dtype}")
     r, ph, pw, c = grad_out.shape
-    if c % vector_width(grad_out.dtype):
-        raise ValueError(f"the kernel needs C a multiple of {vector_width(grad_out.dtype)}, got C={c}")
+    vec = max(vector_width(grad_out.dtype), vector_width(out_dtype))
+    if c % vec:
+        raise ValueError(f"the kernel needs C a multiple of {vec}, got C={c}")
     grad_out, meta, rois, levels, grid = (
         t.contiguous() for t in (grad_out, meta, rois, levels, grid)
     )
     if grad_out.data_ptr() % VECTOR_BYTES:
         raise ValueError("the kernel needs a 16-byte aligned gradient")
-    grad = torch.zeros((int(n_rows), c), dtype=torch.float32, device=grad_out.device)
-    if r == 0:
-        return grad
+    dev, n_rows = grad_out.device, int(n_rows)
+    out = torch.empty((n_rows, c), dtype=out_dtype, device=dev)
+    acc = out if out_dtype == torch.float32 else torch.empty((n_rows, c), dtype=torch.float32, device=dev)
+    # the marking kernel zeroes the stats when there is a roi
+    stats = (torch.empty if r else torch.zeros)((2,), dtype=torch.int32, device=dev)
+    flags = _unit_flags(dev, -(-n_rows // UNIT_ROWS))
+    th, tw = backward_tile(r, (ph, pw), torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _load_backward()
+    info = backward_unit_info(lib, r * -(-ph // th) * -(-pw // tw), dev)
     status = lib.glass_roi_align_rotated_backward(
-        grad_out.data_ptr(), _DTYPES[grad_out.dtype], c, rois.data_ptr(), meta.data_ptr(),
-        levels.data_ptr(), grid.data_ptr(), r, ph, pw, grad.data_ptr(),
-        _cuda.current_stream(grad_out.device),
+        grad_out.data_ptr(), _DTYPES[grad_out.dtype], _DTYPES[out_dtype], c, rois.data_ptr(),
+        meta.data_ptr(), levels.data_ptr(), grid.data_ptr(), r, ph, pw, th, tw, FOOTPRINT_ROWS,
+        SLOT_ROWS, n_rows, acc.data_ptr(), out.data_ptr(), flags.data_ptr(), stats.data_ptr(),
+        info.data_ptr(), _cuda.current_stream(dev),
     )
     _cuda.check_status(BACKWARD_KERNEL, status)
     _cuda.LAUNCHES[BACKWARD_KERNEL] += 1
-    return grad
+    return (out, stats) if return_stats else out
 
 
 def _load_backward():
@@ -232,9 +337,17 @@ def _load_backward():
     fn = lib.glass_roi_align_rotated_backward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, p, p, p, p, i, i, i, p, p]
+        fn.argtypes = [p, i, i, i, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_longlong, p, p, p, p, p, p]
         fn.restype = i
+        lib.glass_roi_align_rotated_backward_unit_bytes.restype = i
     return lib
+
+
+def backward_unit_info(lib, units: int, device) -> torch.Tensor:
+    """Scratch for K1b's per-(roi, tile) records (the frame and footprint
+    the marking kernel hands the scatter kernel)."""
+    unit_bytes = lib.glass_roi_align_rotated_backward_unit_bytes()
+    return torch.empty((max(units, 1) * unit_bytes,), dtype=torch.uint8, device=device)
 
 
 def _pool_forward(flat, meta, rois, levels, grid, output_size):
@@ -345,6 +458,75 @@ def plain_samples(meta, rois, levels, grid, output_size):
             ws = [torch.where(on, w, torch.zeros_like(w)) for w in ws]
             idx = [b_r + a * w_r + b for a, b in ((yi, xi), (yi, xi1), (yi1, xi), (yi1, xi1))]
             yield idx, ws
+
+
+class TileFootprints(NamedTuple):
+    """Per (roi, bin tile), tile-major within a roi: the level's first
+    packed row and width, the inclusive map rows ``y0..y1`` and columns
+    ``x0..x1`` that every tap of the tile's samples lies in (``y1 < y0``:
+    the tile has no tap), and whether the footprint exceeds the kernel's
+    shared-memory capacity (the tile then takes the direct path)."""
+
+    base: torch.Tensor
+    width: torch.Tensor
+    y0: torch.Tensor
+    y1: torch.Tensor
+    x0: torch.Tensor
+    x1: torch.Tensor
+    direct: torch.Tensor
+
+
+def bin_tile_footprints(meta, rois, levels, grid, out_hw, tile, capacity=None) -> TileFootprints:
+    """Plain version of K1b's ``tile_footprint`` (csrc/roi_align_rotated_
+    backward.cu): the bounding rectangle, on the roi's level, of the bin
+    tile's rotated extent, widened by ``FOOTPRINT_SLACK`` for rounding, plus
+    the one-pixel tap reach, clamped to the map.  ``tile`` is (bin rows, bin
+    columns); tiles run row-major over the ``ph x pw`` bins, the last ones
+    cut at the edge.  Returns (R, tiles) tensors."""
+    capacity = FOOTPRINT_ROWS if capacity is None else capacity
+    ph_n, pw_n = (int(v) for v in out_hw)
+    th_n, tw_n = (int(v) for v in tile)
+    m = meta[levels.long()]
+    scale, height, width, base = m[:, 0], m[:, 1], m[:, 2], m[:, 3].to(torch.int64)
+    cx = rois[:, 0] * scale - 0.5
+    cy = rois[:, 1] * scale - 0.5
+    rw = rois[:, 2] * scale
+    rh = rois[:, 3] * scale
+    theta = rois[:, 4] * math.pi / 180.0
+    cos_t, sin_t = torch.cos(theta)[:, None], torch.sin(theta)[:, None]
+    bin_h, bin_w = (rh / ph_n)[:, None], (rw / pw_n)[:, None]
+    h0 = torch.arange(0, ph_n, th_n, dtype=torch.float32, device=rois.device)
+    w0 = torch.arange(0, pw_n, tw_n, dtype=torch.float32, device=rois.device)
+    h1 = torch.clamp(h0 + th_n, max=ph_n)
+    w1 = torch.clamp(w0 + tw_n, max=pw_n)
+    # tile-major (tile row, tile column) pairs
+    h0, h1 = h0.repeat_interleave(w0.numel()), h1.repeat_interleave(w0.numel())
+    w0, w1 = w0.repeat(len(h1) // w0.numel()), w1.repeat(len(h1) // w1.numel())
+    ya = (-rh[:, None] / 2.0 + h0[None] * bin_h)
+    yb = (-rh[:, None] / 2.0 + h1[None] * bin_h)
+    xa = (-rw[:, None] / 2.0 + w0[None] * bin_w)
+    xb = (-rw[:, None] / 2.0 + w1[None] * bin_w)
+    yc_lo, yc_hi = torch.minimum(ya * cos_t, yb * cos_t), torch.maximum(ya * cos_t, yb * cos_t)
+    xs_lo, xs_hi = torch.minimum(xa * sin_t, xb * sin_t), torch.maximum(xa * sin_t, xb * sin_t)
+    ys_lo, ys_hi = torch.minimum(ya * sin_t, yb * sin_t), torch.maximum(ya * sin_t, yb * sin_t)
+    xc_lo, xc_hi = torch.minimum(xa * cos_t, xb * cos_t), torch.maximum(xa * cos_t, xb * cos_t)
+    y_lo = (yc_lo - xs_hi) + cy[:, None] - FOOTPRINT_SLACK
+    y_hi = (yc_hi - xs_lo) + cy[:, None] + FOOTPRINT_SLACK
+    x_lo = (ys_lo + xc_lo) + cx[:, None] - FOOTPRINT_SLACK
+    x_hi = (ys_hi + xc_hi) + cx[:, None] + FOOTPRINT_SLACK
+    hf, wf = height[:, None], width[:, None]
+    y0 = torch.minimum(torch.clamp(torch.floor(y_lo), min=0.0), hf - 1.0)
+    y1 = torch.minimum(torch.clamp(torch.floor(y_hi) + 1.0, min=0.0), hf - 1.0)
+    x0 = torch.minimum(torch.clamp(torch.floor(x_lo), min=0.0), wf - 1.0)
+    x1 = torch.minimum(torch.clamp(torch.floor(x_hi) + 1.0, min=0.0), wf - 1.0)
+    # every sample outside [-1, H] x [-1, W], or an empty grid: no tap
+    empty = (y_hi < -1.0) | (y_lo > hf) | (x_hi < -1.0) | (x_lo > wf)
+    empty = empty | ((grid[:, 0] <= 0) | (grid[:, 1] <= 0))[:, None]
+    y0, y1, x0, x1 = (t.to(torch.int64) for t in (y0, y1, x0, x1))
+    y1 = torch.where(empty, y0 - 1, y1)
+    rows = (y1 - y0 + 1) * (x1 - x0 + 1)
+    return TileFootprints(base[:, None].expand_as(y0), width.to(torch.int64)[:, None].expand_as(y0),
+                          y0, y1, x0, x1, rows > capacity)
 
 
 def sample_grid_plain(
