@@ -66,16 +66,45 @@ Phases:
      launches a step: one pooler launch over the batch, one crop launch an
      image), and one f32 step on the card against the same step on the CPU
      from the trainer's seeded iteration-0 weights.
+  9. the inference variants, at full width in bfloat16 with phase 4's
+     weights: phase 4's weights saved in the legacy layout (the recognizer
+     registered as the mask head) and loaded by ``GlassRunner(model_path=)``
+     (every tensor the file holds bit for bit, all 43 of the recognizer's);
+     TPU.TWO_STAGE_INFERENCE beside one-stage serving on phase 4's images
+     (``__call__`` and ``run_model`` medians, the histogram of stage-2 row
+     counts, exactly 3 K1 and 1 K2 launches an image; with the character
+     distributions fetched, detections equal, text ids equal up to each
+     word's end before a knife-edge step, masks within one step of their
+     fetch dtype), first at the config's thresholds (a random model fills
+     all 100 rows) and then on four images at a raised
+     ROI_HEADS.SCORE_THRESH_TEST each, picked from the image's one-stage
+     scores for about 4, 12, 24 and 48 detections, so that stage 2 runs on
+     the word buckets below 100 with (0, 0, 1, 1, 0) padding rows (at
+     least two of them, or it fails);
+     ``glass_tpu_torch.eval --tta`` on two of phase 6's scenes at the
+     default TEST.AUG (18 views: s/image, the merged boxes an image, the
+     largest view's bucket, peak memory, P/R/H, exactly 18*3 + 2 K1 and
+     18 + 1 K2 launches an image); one image each through
+     glass_finetune_textocr.yaml and glass_finetune_totaltext.yaml, served
+     under tools/eval_glass.py's ICDAR15 protocol overrides as phase 4's
+     config is (3 and 1 launches, finite outputs); and
+     3 steps of glass_pretrain.yaml at its IMS_PER_BATCH 8 from a synthetic
+     caffe2 R-50 trunk ``.pkl`` given as ``--weights`` (every trunk tensor
+     set from it, every loss finite, s/step and peak memory).
 
 Prints, on the last two lines, a JSON object with one entry per kernel and
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero.
+``{"ok": true, "device": {...}}``, and copies everything it prints into
+``--out``/chip_smoke.log.  Any failure exits non-zero.
 
 Rehearse phase 6 on the CPU (no card) at a small size with
 ``phase_eval(state_dict, out_dir, device="cpu", n_images=2, hw=(96, 128),
 opts=[...small bucket...])``, and phase 8 with ``phase_train(out_dir,
 device="cpu", n_images=3, hw=(96, 128), opts=[...small shapes...], steps=2,
-steps_b4=1, overfit_steps=10, step_opts=[...])``; they take ``device`` for
-that alone.
+steps_b4=1, overfit_steps=10, step_opts=[...])``, and phase 9 with
+``phase_variants(state_dict, images, out_dir, device="cpu", opts=[...small
+bucket...], eval_hw=(96, 128), n_timed=3, tta_opts=[TEST.AUG.MIN_SIZES
+[64, 96], TEST.AUG.MAX_SIZE 128], train_opts=[...small shapes...],
+steps=2)``; they take ``device`` for that alone.
 """
 
 from __future__ import annotations
@@ -85,6 +114,7 @@ import collections
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -113,6 +143,22 @@ POOLERS = (
 
 def log(*args):
     print(*args, flush=True)
+
+
+class Tee:
+    """Standard output copied into a file (``--out``/chip_smoke.log): a
+    run on a remote card may return only the end of its output."""
+
+    def __init__(self, stream, path):
+        self.stream, self.file = stream, open(path, "w")
+
+    def write(self, text):
+        self.file.write(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.file.flush()
+        self.stream.flush()
 
 
 def card_line() -> str:
@@ -493,12 +539,14 @@ def phase_k2(rng, rois_np):
     return rows, edge, lib_ms["bfloat16"]
 
 
-def icdar15_cfg(dtype: str):
-    """configs/glass_finetune_icdar15.yaml + the protocol overrides of
-    tools/eval_glass.py, then opts."""
+def eval_cfg(dtype: str, config: str = ICDAR15, opts=()):
+    """A shipped config (configs/glass_finetune_icdar15.yaml unless another
+    is named) + tools/eval_glass.py's ICDAR15 protocol overrides (test
+    sizes, thresholds, masks on, orientation not applied to boxes), then
+    the compute dtype and opts."""
     from glass_tpu_torch.config import get_cfg
 
-    cfg = get_cfg(ICDAR15)
+    cfg = get_cfg(config)
     cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST = 0.35
     cfg.INFERENCE_TH_TEST = 0.3
     cfg.INFERENCE_DETECTION_TH_TEST = 0.65
@@ -508,7 +556,7 @@ def icdar15_cfg(dtype: str):
     cfg.INPUT.MAX_SIZE_TEST = 1600
     cfg.MODEL.ROI_MASK_HEAD.MASK_INFERENCE = True
     cfg.MODEL.ROI_ORIENTATION_HEAD.APPLY_TO_BOXES = False
-    cfg.merge_from_list(["TPU.COMPUTE_DTYPE", dtype])
+    cfg.merge_from_list(["TPU.COMPUTE_DTYPE", dtype, *opts])
     return cfg
 
 
@@ -518,7 +566,7 @@ def seeded_weights(image: np.ndarray) -> dict:
     from glass_tpu_torch.inference.runner import calibrate_batch_norm_, random_init_
     from glass_tpu_torch.models import GlassArch, GlassRCNN
 
-    arch = GlassArch.from_config(icdar15_cfg("float32"))
+    arch = GlassArch.from_config(eval_cfg("float32"))
     model = random_init_(GlassRCNN(arch), seed=0).eval().cuda()
     h, w = image.shape[:2]
     padded = np.zeros(BUCKET_HW + (3,), np.float32)
@@ -603,7 +651,7 @@ def phase_main(images, state_dict, n_timed, out_dir):
     from glass_tpu_torch.inference import GlassRunner
     from glass_tpu_torch.ops import _cuda
 
-    runner = GlassRunner(cfg=icdar15_cfg("bfloat16"), state_dict=state_dict, device="cuda")
+    runner = GlassRunner(cfg=eval_cfg("bfloat16"), state_dict=state_dict, device="cuda")
     model_ms = []
     run_model = runner.run_model
 
@@ -699,7 +747,7 @@ def phase_whole(image, state_dict):
     from glass_tpu_torch.inference import GlassRunner
     from glass_tpu_torch.models import glass_rcnn as gr
 
-    cfg = icdar15_cfg("float32")
+    cfg = eval_cfg("float32")
     gpu_r = GlassRunner(cfg=cfg, state_dict=state_dict, device="cuda")
     cpu_r = GlassRunner(cfg=cfg, state_dict=state_dict, device="cpu")
     h, w = image.shape[:2]
@@ -903,14 +951,15 @@ class StageClock:
     (``merge_intersecting_boxes``, host or device); the rest of it is the
     filters, polygons and text decoding."""
 
-    def __init__(self):
+    def __init__(self, spans=None):
         from glass_tpu_torch.inference import GlassRunner
         from glass_tpu_torch.postprocess import PostProcessorRotatedBoxes
 
-        self.spans = ((GlassRunner, "dispatch_batch", "model"), (GlassRunner, "collect_batch", "fetch"),
-                      (GlassRunner, "_postprocess_chunk", "host"),
-                      (GlassRunner, "_model_postprocess", "host: detector_postprocess"),
-                      (PostProcessorRotatedBoxes, "merge_intersecting_boxes", "host: merge"))
+        self.spans = spans or (
+            (GlassRunner, "dispatch_batch", "model"), (GlassRunner, "collect_batch", "fetch"),
+            (GlassRunner, "_postprocess_chunk", "host"),
+            (GlassRunner, "_model_postprocess", "host: detector_postprocess"),
+            (PostProcessorRotatedBoxes, "merge_intersecting_boxes", "host: merge"))
         self.ms, self.saved = collections.Counter(), []
 
     def __enter__(self):
@@ -1509,7 +1558,7 @@ def _phase_train(root, device, n_images, hw, opts, steps, steps_b4, overfit_step
     ckpt_dir = os.path.join(root, "b1")
     with open(os.path.join(ckpt_dir, "last_checkpoint")) as f:
         pth = os.path.join(ckpt_dir, f.read().strip())
-    runner = GlassRunner(model_path=pth, cfg=icdar15_cfg("bfloat16"), device=device)
+    runner = GlassRunner(model_path=pth, cfg=eval_cfg("bfloat16"), device=device)
     same = all(torch.equal(v.cpu(), trainer.model.state_dict()[k].cpu()) for k, v in runner.model.state_dict().items())
     image = synthetic_image(np.random.RandomState(5), *hw)
     preds = runner(image)
@@ -1650,6 +1699,418 @@ def check_f32_step(ds_yaml, device, step_opts):
     return dict(loss_rel=loss_err[worst_loss], head_l2=heads, worst_l2=deep[0][1][0], bn_rel=bn_err)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the inference variants, the other shipped configs, the
+# checkpoint formats
+# ---------------------------------------------------------------------------
+
+TEXTOCR = os.path.join("configs", "glass_finetune_textocr.yaml")
+TOTALTEXT = os.path.join("configs", "glass_finetune_totaltext.yaml")
+PRETRAIN = os.path.join("configs", "glass_pretrain.yaml")
+N_TWO_STAGE = 12        # timed images per path (one-stage, two-stage), after one warm-up
+N_COMPARED = 4          # images whose raw outputs two-stage and one-stage compare
+N_BELOW_CAP = 4         # timed calls per path at each raised threshold
+N_TTA_IMAGES = 2        # phase 6's scenes through eval --tta
+PRETRAIN_STEPS = 3      # glass_pretrain.yaml at its IMS_PER_BATCH 8
+REC, MASK = "roi_heads.recognizer_head.", "roi_heads.mask_head."
+# caffe2 R-50 trunk: (blocks, bottleneck width, output width) per stage
+C2_STAGES = {"res2": (3, 64, 256), "res3": (4, 128, 512), "res4": (6, 256, 1024), "res5": (3, 512, 2048)}
+
+
+def caffe2_trunk(seed: int = 0) -> dict:
+    """A synthetic caffe2 ImageNet R-50 trunk (``conv1_w``, ``res2_0_branch2a_w``,
+    ``..._bn_s``, ``..._bn_b``), drawn as ``random_init_`` draws a model:
+    He-scaled convolutions, BN scales near 1 (a quarter of that on the last
+    BN of each residual branch), small biases."""
+    rng = np.random.RandomState(seed)
+    out = {}
+
+    def put(key, shape):
+        out[f"{key}_w"] = (rng.randn(*shape) * math.sqrt(2.0 / np.prod(shape[1:]))).astype(np.float32)
+        scale = 0.25 if key.endswith("branch2c") else 1.0
+        out[f"{key}_bn_s"] = (scale * (1.0 + 0.1 * rng.randn(shape[0]))).astype(np.float32)
+        out[f"{key}_bn_b"] = (0.1 * rng.randn(shape[0])).astype(np.float32)
+
+    put("res_conv1", (64, 3, 7, 7))
+    out["conv1_w"] = out.pop("res_conv1_w")
+    cin = 64
+    for stage, (n, mid, cout) in C2_STAGES.items():
+        for i in range(n):
+            first = cin if i == 0 else cout
+            put(f"{stage}_{i}_branch2a", (mid, first, 1, 1))
+            put(f"{stage}_{i}_branch2b", (mid, mid, 3, 3))
+            put(f"{stage}_{i}_branch2c", (cout, mid, 1, 1))
+            if i == 0:
+                put(f"{stage}_{i}_branch1", (cout, first, 1, 1))
+        cin = cout
+    return out
+
+
+def legacy_layout(state_dict: dict) -> dict:
+    """A port state dict in the legacy RecognizerROIHeadsV2 layout: the
+    recognizer registered as the mask head, and so no conv mask head."""
+    return {(MASK + k[len(REC):] if k.startswith(REC) else k): v
+            for k, v in state_dict.items() if not k.startswith(MASK)}
+
+
+def _launch_check(what, launches, want):
+    got = {k: launches.get(k, 0) for k in want}
+    log(f"variants {what}: launches {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"variants {what}: launches {got}, expected {want}")
+
+
+def phase_variants(state_dict, images, out_dir, device="cuda", opts=(), eval_hw=(720, 1280),
+                   n_timed=N_TWO_STAGE, tta_opts=(), train_opts=(), steps=PRETRAIN_STEPS):
+    """The inference variants on the card at full width, bf16, phase 4's
+    weights: checkpoint formats, two-stage serving beside one-stage, TTA
+    through the eval CLI, TextOCR and Total-Text serving (under the ICDAR15
+    protocol overrides of ``eval_cfg``), and
+    glass_pretrain.yaml's training from a caffe2 trunk.  ``opts``,
+    ``tta_opts`` and ``train_opts`` cut the sizes for a CPU rehearsal."""
+    device = torch.device(device)
+    root = os.path.join(out_dir, "variants")
+    os.makedirs(root, exist_ok=True)
+    try:
+        return _phase_variants(state_dict, images, root, device, list(opts), eval_hw, n_timed,
+                               list(tta_opts), list(train_opts), steps)
+    finally:  # images, weights and checkpoints are large; the logs stay
+        import glob
+        import shutil
+
+        for d in glob.glob(os.path.join(root, "*", "ds")):
+            shutil.rmtree(d, ignore_errors=True)
+        for f in glob.glob(os.path.join(root, "**", "*.pth"), recursive=True) + [os.path.join(root, "R-50.pkl")]:
+            if os.path.exists(f):
+                os.remove(f)
+
+
+def _phase_variants(state_dict, images, root, device, opts, eval_hw, n_timed, tta_opts, train_opts, steps):
+    from glass_tpu_torch import eval as port_eval
+    from glass_tpu_torch.inference import GlassRunner
+    from glass_tpu_torch.inference import runner as runner_mod
+    from glass_tpu_torch.inference import tta as tta_mod
+    from glass_tpu_torch.ops import _cuda
+    from glass_tpu_torch.postprocess import PostProcessorRotatedBoxes
+    from glass_tpu_torch.train import cli as train_cli
+    from glass_tpu_torch.train.trainer import Trainer
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "CPU"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    start = time.perf_counter()
+    out = {}
+
+    # 1. checkpoint formats: the legacy layout through the runner's loader
+    legacy = os.path.join(root, "legacy.pth")
+    torch.save(legacy_layout(state_dict), legacy)
+    runner = GlassRunner(model_path=legacy, cfg=eval_cfg("bfloat16", opts=opts), device=device)
+    got = runner.model.state_dict()
+    held = [k for k in state_dict if not k.startswith(MASK)]
+    differ = [k for k in held if not torch.equal(got[k].cpu(), state_dict[k])]
+    rec = [k for k in held if k.startswith(REC)]
+    log(f"variants legacy layout: GlassRunner(model_path=legacy.pth) holds {len(held) - len(differ)} of the "
+        f"{len(held)} tensors the file holds bit for bit ({len(rec)} recognizer tensors, read from "
+        f"{MASK}*); the {len(state_dict) - len(held)} conv mask head tensors are not in that layout")
+    if differ or len(rec) != 43:
+        raise AssertionError(f"legacy layout: {len(differ)} tensors differ, e.g. {differ[:4]}; {len(rec)} recognizer")
+    del runner
+
+    # 2. two-stage against one-stage on the ICDAR15 eval config: at the
+    # config's thresholds, where a random model fills all D = 100 rows, then
+    # at a raised ROI_HEADS.SCORE_THRESH_TEST per image, picked from its
+    # one-stage scores, so that stage 2 runs on word buckets below D with
+    # padding rows
+    paths = {"one-stage": eval_cfg("bfloat16", opts=opts),
+             "two-stage": eval_cfg("bfloat16", opts=[*opts, "TPU.TWO_STAGE_INFERENCE", "True"])}
+    caps = collections.Counter()
+    heads = runner_mod.glass_heads_stage
+
+    def counted(model, feats, norm, pyr, boxes, *a, **k):
+        caps[int(boxes.shape[0])] += 1
+        return heads(model, feats, norm, pyr, boxes, *a, **k)
+
+    def serve(name, cfg, served, n):
+        """``n`` timed ``__call__`` of ``served`` in turn after one warm-up:
+        medians of the call and of ``run_model``, each call's detection
+        count and scores, stage 2's row counts; 3 K1 and 1 K2 launches a
+        call."""
+        runner = GlassRunner(cfg=cfg, state_dict=state_dict, device=device)
+        run_model, model_ms, dets = runner.run_model, [], []
+
+        def timed_run_model(image):
+            t0 = time.perf_counter()
+            res = run_model(image)
+            model_ms.append((time.perf_counter() - t0) * 1e3)
+            dets.append(res["scores"][res["valid"]])
+            return res
+
+        runner.run_model = timed_run_model
+        runner(served[-1])  # warm-up
+        model_ms.clear()
+        dets.clear()
+        caps.clear()
+        sync()
+        _cuda.LAUNCHES.clear()
+        call_ms = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            runner(served[i % len(served)])
+            sync()
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_cuda.LAUNCHES)
+        if cuda:
+            _launch_check(name, launches, {"roi_align_rotated": 3 * n, "crop_rois": n})
+        return dict(call_ms=float(np.median(call_ms)), call_p90=float(np.percentile(call_ms, 90)),
+                    model_ms=float(np.median(model_ms)), dets=list(dets), caps=dict(sorted(caps.items())))
+
+    timing, below = {}, []
+    runner_mod.glass_heads_stage = counted
+    try:
+        for name, cfg in paths.items():
+            r = timing[name] = serve(name, cfg, images, n_timed)
+            log(f"variants {name} ({card}): {n_timed} images through __call__: median {r['call_ms']:.2f} ms "
+                f"(p90 {r['call_p90']:.2f}), run_model median {r['model_ms']:.2f} ms"
+                + (f"; stage-2 rows per image {r['caps']}" if name == "two-stage" else ""))
+        # one image per word bucket b, about halfway between b and the one below
+        d = paths["one-stage"].TEST.DETECTIONS_PER_IMAGE
+        buckets = sorted(paths["two-stage"].TPU.WORD_BUCKETS)
+        targets = [(lo + b + 1) // 2 for lo, b in zip([0] + buckets, buckets) if b < d]
+        for image, scores, target in zip(images, timing["one-stage"]["dets"], targets):
+            uniq = np.unique(scores)[::-1]
+            k = max([j for j in range(1, len(uniq)) if (scores >= uniq[j - 1]).sum() <= target], default=1)
+            thresh = f"{(float(uniq[k - 1]) + float(uniq[k])) / 2:.9g}"
+            raised = {name: cfg.clone() for name, cfg in paths.items()}
+            for cfg in raised.values():
+                cfg.merge_from_list(["MODEL.ROI_HEADS.SCORE_THRESH_TEST", thresh])
+            r = {name: serve(f"{name} at SCORE_THRESH_TEST {thresh}", cfg, [image], N_BELOW_CAP)
+                 for name, cfg in raised.items()}
+            n = len(r["two-stage"]["dets"][0])
+            below.append(dict(thresh=float(thresh), n=n, caps=r["two-stage"]["caps"],
+                              model_ms={name: v["model_ms"] for name, v in r.items()},
+                              call_ms={name: v["call_ms"] for name, v in r.items()},
+                              compared=compare_two_stage(raised, state_dict, [image], device)))
+            log(f"variants two-stage below the cap ({card}): SCORE_THRESH_TEST {thresh}, {n} detections, "
+                f"stage-2 rows {r['two-stage']['caps']} over {N_BELOW_CAP} calls; run_model median "
+                f"{r['two-stage']['model_ms']:.2f} ms (one-stage {r['one-stage']['model_ms']:.2f}), __call__ "
+                f"median {r['two-stage']['call_ms']:.2f} ms (one-stage {r['one-stage']['call_ms']:.2f})")
+    finally:
+        runner_mod.glass_heads_stage = heads
+    padded = sorted({c for b in below for c in b["caps"] if b["n"] < c < d})
+    log(f"variants two-stage: word buckets run below D = {d} with padding rows: {padded}")
+    if len(padded) < 2:
+        raise AssertionError(f"two-stage: stage 2 ran with padding rows at {padded}, want two buckets below {d}")
+    out["timing"] = {name: (r["call_ms"], r["model_ms"]) for name, r in timing.items()}
+    out["caps"] = timing["two-stage"]["caps"]
+    out["below_cap"] = below
+    out["two_stage"] = compare_two_stage(paths, state_dict, images[:N_COMPARED], device)
+
+    # 3. TTA through the eval CLI on phase 6's scenes
+    tta_root = os.path.join(root, "tta")
+    ds_yaml = write_eval_set(tta_root, N_TTA_IMAGES, eval_hw)
+    pth = os.path.join(root, "model.pth")
+    torch.save(state_dict, pth)
+    common = ["--config", ICDAR15, "--datasets", ds_yaml, "--model", pth, "--device", str(device), "--tta"]
+    cli_opts = ["TPU.COMPUTE_DTYPE", "bfloat16", *LOOSE_OPTS, *opts, *tta_opts]
+    cfg = port_eval.setup(port_eval.parse_args(common + ["--output", os.path.join(tta_root, "cfg"), *cli_opts]))
+    n_views = len(cfg.TEST.AUG.MIN_SIZES) * (2 if cfg.TEST.AUG.FLIP else 1)
+    probe = GlassRunner(cfg=cfg, state_dict=state_dict, device=device)
+    h, w = eval_hw
+    views = []
+    for short in cfg.TEST.AUG.MIN_SIZES:
+        scale = min(short / min(h, w), cfg.TEST.AUG.MAX_SIZE / max(h, w))
+        views.append(probe._pick_bucket(int(h * scale + 0.5), int(w * scale + 0.5)))
+    del probe
+    port_eval.main(common + ["--output", os.path.join(tta_root, "warmup"), "--max-images", "1", *cli_opts])
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _cuda.LAUNCHES.clear()
+    spans = ((GlassRunner, "run_on_resized", "views (model, fetch)"), (tta_mod, "nms_rotated_np", "merge (host NMS)"),
+             (GlassRunner, "forward_with_given_boxes", "heads on the merged boxes"),
+             (PostProcessorRotatedBoxes, "__call__", "post-processing"))
+    merged, given = [], GlassRunner.forward_with_given_boxes
+
+    def counted_given(self, image, instances):
+        merged.append(len(instances))
+        return given(self, image, instances)
+
+    GlassRunner.forward_with_given_boxes = counted_given
+    try:
+        with StageClock(spans) as clock:
+            t0 = time.perf_counter()
+            res = port_eval.main(common + ["--output", os.path.join(tta_root, "run"), *cli_opts])["synth_test"]
+            sync()
+            tta_s = (time.perf_counter() - t0) / N_TTA_IMAGES
+    finally:
+        GlassRunner.forward_with_given_boxes = given
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0
+    prh = "; ".join(f"{k.split('_')[0].lower()} P {v['precision']:.4f} R {v['recall']:.4f} H {v['hmean']:.4f}"
+                    for k, v in res.items())
+    log(f"variants TTA ({card}): eval --tta on {N_TTA_IMAGES} scenes of {h}x{w}, {n_views} views an image "
+        f"(short sides {list(cfg.TEST.AUG.MIN_SIZES)}, max {cfg.TEST.AUG.MAX_SIZE}, flip {cfg.TEST.AUG.FLIP}): "
+        f"{tta_s:.3f} s/image (CLI loop, image reads included); merged boxes through the given-boxes pass "
+        f"{merged} (of DETECTIONS_PER_IMAGE {cfg.TEST.DETECTIONS_PER_IMAGE}); largest view's bucket "
+        f"{max(views, key=lambda b: b[0] * b[1])}; peak memory {peak:.0f} MiB; {prh}")
+    log("variants TTA split, s/image: " + ", ".join(f"{k} {v / 1e3 / N_TTA_IMAGES:.3f}" for k, v in clock.ms.items())
+        + f"; the rest (reads, evaluator) {tta_s - sum(clock.ms.values()) / 1e3 / N_TTA_IMAGES:.3f}")
+    if cuda:
+        _launch_check("TTA", launches, {"roi_align_rotated": (3 * n_views + 2) * N_TTA_IMAGES,
+                                        "crop_rois": (n_views + 1) * N_TTA_IMAGES})
+    out["tta"] = dict(s_per_image=tta_s, peak_mib=peak, results=res, views=views, merged=merged)
+
+    # 4. the other shipped configs: TextOCR and Total-Text serving
+    image = images[0]
+    for config in (TEXTOCR, TOTALTEXT):
+        runner = GlassRunner(model_path=pth, cfg=eval_cfg("bfloat16", config=config, opts=[*LOOSE_OPTS, *opts]),
+                             device=device)
+        runner(image)  # warm-up
+        sync()
+        _cuda.LAUNCHES.clear()
+        raw = runner.run_model(image.astype(np.float32))
+        launches = dict(_cuda.LAUNCHES)
+        finite = all(np.isfinite(np.asarray(v, np.float32)).all() for v in raw.values())
+        preds = runner(image)
+        log(f"variants {os.path.basename(config)} under the ICDAR15 eval protocol overrides ({card}): "
+            f"{int(raw['valid'].sum())} raw detections, "
+            f"{len(preds)} words after post-processing; outputs finite {finite}; orientation head "
+            f"{runner.arch.orientation_on}")
+        if cuda:
+            _launch_check(os.path.basename(config), launches, {"roi_align_rotated": 3, "crop_rois": 1})
+        if not finite or not np.isfinite(np.asarray(preds.pred_boxes)).all():
+            raise AssertionError(f"{config}: non-finite outputs")
+        del runner
+
+    # 5. glass_pretrain.yaml from a caffe2 trunk, at its IMS_PER_BATCH 8
+    train_root = os.path.join(root, "pretrain")
+    pkl = os.path.join(root, "R-50.pkl")
+    trunk = caffe2_trunk()
+    with open(pkl, "wb") as f:
+        pickle.dump(trunk, f)
+    ds_yaml = write_eval_set(train_root, 8, eval_hw, seed=3, name="synth_train", train=True)
+    args = train_cli.parse_args([
+        "--config", PRETRAIN, "--datasets", ds_yaml, "--output", os.path.join(train_root, "out"),
+        "--weights", pkl, "--max-iter", str(steps), "--device", str(device),
+        "TPU.COMPUTE_DTYPE", "bfloat16", "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0",
+        "VIS_PERIOD", "0", "SOLVER.BASE_LR", TRAIN_LR, *train_opts])
+    cfg = train_cli.setup(args)
+    trainer = Trainer(cfg, device=device)  # loads MODEL.WEIGHTS = --weights
+    sd = trainer.model.state_dict()
+    want = {"backbone.bottom_up.stem.conv1": "res_conv1"}
+    for stage, (n, _, _) in C2_STAGES.items():
+        for i in range(n):
+            for c2, ours in (("branch2a", "conv1"), ("branch2b", "conv2"), ("branch2c", "conv3"), ("branch1", "shortcut")):
+                if f"{stage}_{i}_{c2}_w" in trunk:
+                    want[f"backbone.bottom_up.{stage}.{i}.{ours}"] = f"{stage}_{i}_{c2}"
+    trunk["res_conv1_w"] = trunk["conv1_w"]
+    unset = []
+    for ours, c2 in want.items():
+        c = len(trunk[f"{c2}_bn_s"])
+        for suffix, ref in ((".weight", trunk[f"{c2}_w"]), (".norm.weight", trunk[f"{c2}_bn_s"]),
+                            (".norm.bias", trunk[f"{c2}_bn_b"]), (".norm.running_mean", np.zeros(c, np.float32)),
+                            (".norm.running_var", np.ones(c, np.float32))):
+            if not np.array_equal(sd[ours + suffix].cpu().numpy(), ref):
+                unset.append(ours + suffix)
+    log(f"variants pretrain: --weights R-50.pkl (synthetic caffe2 trunk) set {5 * len(want) - len(unset)} of "
+        f"the {5 * len(want)} trunk tensors it holds")
+    if unset:
+        raise AssertionError(f"pretrain: trunk tensors not loaded from the .pkl: {unset[:5]}")
+    trainer.resume_or_load(resume=False)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _cuda.LAUNCHES.clear()
+    with StepClock(device) as clock:
+        trainer.train(max_iter=steps)
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0
+    ims = int(cfg.SOLVER.IMS_PER_BATCH)
+    if cuda:
+        _check_launches(launches, steps, ims, f"pretrain at IMS_PER_BATCH {ims}")
+    ms = np.asarray(clock.ms[1:] or clock.ms)
+    bad = [i for i, m in enumerate(clock.metrics) if not all(np.isfinite(v) for v in m.values())]
+    log(f"variants pretrain ({card}): {steps} steps of glass_pretrain.yaml at IMS_PER_BATCH {ims} (bf16, "
+        f"recognizer MAX_BATCH_SIZE {cfg.MODEL.ROI_RECOGNIZER_HEAD.MAX_BATCH_SIZE}): s/step median "
+        f"{np.median(ms) / 1e3:.3f} (first excluded; all {[round(t / 1e3, 3) for t in clock.ms]}), "
+        f"{ims * 1e3 / np.median(ms):.2f} img/s; peak memory {peak:.0f} MiB; total loss "
+        f"{[round(m['total_loss'], 3) for m in clock.metrics]}")
+    if bad or len(clock.metrics) != steps:
+        raise AssertionError(f"pretrain: non-finite losses at steps {bad}")
+    out["pretrain"] = dict(median_s=float(np.median(ms)) / 1e3, peak_mib=peak)
+    log(f"phase 9: {time.perf_counter() - start:.1f} s")
+    return out
+
+
+def served(runner, image):
+    """``run_model``'s raw output for the resized image ``runner(image)``
+    serves."""
+    got, run = [], runner.run_model
+    runner.run_model = lambda resized: got.append(run(resized)) or got[-1]
+    try:
+        runner(image)
+    finally:
+        del runner.run_model
+    return got[0]
+
+
+def compare_two_stage(paths, state_dict, images, device):
+    """Raw outputs of two-stage against one-stage serving, the full
+    character distributions fetched (TPU.TEXT_EMIT probs): detections
+    equal; text ids equal on every step up to each row's end-of-word before
+    a knife-edge step (a top-two margin under three times the largest
+    probability difference on agreeing steps, and at least 1e-4, as
+    tests/test_torch_slice.py's rule); masks within one step of their fetch
+    dtype."""
+    from glass_tpu_torch.inference import GlassRunner
+
+    runners = {}
+    for name, cfg in paths.items():
+        cfg = cfg.clone()
+        cfg.merge_from_list(["TPU.TEXT_EMIT", "probs"])
+        runners[name] = GlassRunner(cfg=cfg, state_dict=state_dict, device=device)
+    fetch = runners["one-stage"].arch.mask_fetch_dtype
+    mask_step = 1.0 / 255 if fetch == "uint8" else (2.0 ** -11 if fetch == "float16" else 2.0 ** -24)
+    det_same, worst_box, worst_score, pairs = True, 0.0, 0.0, []
+    for image in images:
+        one, two = served(runners["one-stage"], image), served(runners["two-stage"], image)
+        same = all(np.array_equal(one[k], two[k]) for k in ("valid", "boxes", "scores", "classes", "orientations"))
+        det_same &= same
+        if np.array_equal(one["valid"], two["valid"]):
+            v = one["valid"]
+            worst_box = max(worst_box, float(_box_dist(one["boxes"][v], two["boxes"][v]).max(initial=0.0)))
+            worst_score = max(worst_score, float(np.abs(one["scores"][v] - two["scores"][v]).max(initial=0.0)))
+        else:
+            raise AssertionError("two-stage: the valid detections differ from one-stage")
+        pairs.append((one, two))
+    if not det_same:
+        log(f"variants two-stage vs one-stage: stage 1 is not bit-equal (cuDNN's algorithm choice); held to "
+            f"phase 5's bounds: boxes {worst_box:.3g} (tol {BOX_ATOL} px), scores {worst_score:.3g} (tol {SCORE_ATOL})")
+        if worst_box > BOX_ATOL or worst_score > SCORE_ATOL:
+            raise AssertionError("two-stage: stage 1 differs from one-stage beyond phase 5's bounds")
+    gp = np.concatenate([t["text_probs"][o["valid"]] for o, t in pairs])
+    wp = np.concatenate([o["text_probs"][o["valid"]] for o, t in pairs])
+    ids = wp.argmax(-1)
+    upto_eos = np.cumsum(ids == 0, axis=1) - (ids == 0) == 0
+    agree = gp.argmax(-1) == ids
+    prob_diff = float(np.abs(gp - wp).max(-1)[upto_eos & agree].max(initial=0.0))
+    knife = max(KNIFE_EDGE, 3 * prob_diff)
+    top2 = np.sort(wp, -1)[..., -2:]
+    before = ~np.cumsum(top2[..., 1] - top2[..., 0] < knife, axis=1).astype(bool)
+    held = upto_eos & before
+    flips = int((~agree & held).sum())
+    mask_diff = max(float(np.abs(o["mask_probs"][o["valid"]].astype(np.float32)
+                                 - t["mask_probs"][o["valid"]].astype(np.float32)).max(initial=0.0))
+                    for o, t in pairs)
+    log(f"variants two-stage vs one-stage ({len(images)} images, {len(gp)} words): detections bit-equal {det_same}; "
+        f"text ids differ on {flips} of {int(held.sum())} steps held (up to the end of word, before a knife edge "
+        f"under {knife:.3g}; {int((upto_eos & ~before).sum())} steps past one; largest probability difference on "
+        f"agreeing steps {prob_diff:.3g}); mask probabilities max diff {mask_diff:.3g} (one {fetch} step "
+        f"{mask_step:.3g})")
+    if flips or mask_diff > mask_step:
+        raise AssertionError(f"two-stage differs from one-stage: {flips} text steps, mask diff {mask_diff}")
+    return dict(det_same=det_same, flips=flips, knife=knife, mask_diff=mask_diff)
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     return {
         "name": name,
@@ -1668,7 +2129,7 @@ def kernel_entry(name, source, replaces, launches, rows):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
     ap.add_argument("--out", default="chip_smoke_out", help="directory for the build log and the profile table")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1676,6 +2137,8 @@ def main():
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU")
         sys.exit(2)
+    os.makedirs(args.out, exist_ok=True)
+    sys.stdout = Tee(sys.stdout, os.path.join(args.out, "chip_smoke.log"))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1695,7 +2158,7 @@ def main():
         k1_rows, k1_edge = phase_k1(rng, rois_np)
     if 3 in phases:
         k2_rows, k2_edge, k2_lib_ms = phase_k2(rng, rois_np)
-    if phases & {4, 5, 6}:
+    if phases & {4, 5, 6, 9}:
         images = [synthetic_image(np.random.RandomState(100 + i), 720, 1280) for i in range(N_IMAGES)]
         state_dict = seeded_weights(images[0])
         if 4 in phases:
@@ -1704,6 +2167,8 @@ def main():
             phase_whole(images[0], state_dict)
         if 6 in phases:
             phase_eval(state_dict, args.out)
+        if 9 in phases:
+            phase_variants(state_dict, images, args.out)
     if 7 in phases:
         k1_train_rows, k1b_rows, k1b_edge = phase_k1b(np.random.RandomState(7))
     if 8 in phases:

@@ -13,8 +13,10 @@ precision/recall/hmean per dataset under the RRC protocol, a
         --datasets data_configs/example_datasets.yaml --model model.pth \\
         --batch-size 4 --output eval_out
 
-Not ported yet, and refused: ``--tta`` / ``TEST.AUG.ENABLED`` (the TTA slice)
-and more than one process (the distributed slice).
+``--tta`` (or ``TEST.AUG.ENABLED``) evaluates image by image through
+``inference.tta.GlassRunnerWithTTA.eval_call``, whatever ``--batch-size``
+is, as the reference does.  Not ported yet, and refused: more than one
+process (the distributed slice).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ def parse_args(argv=None):
     p.add_argument("--strong-lexicon-dir", default=None,
                    help="type 3: dir of new_voc_img_<i>.txt / pair_voc_img_<i>.txt")
     p.add_argument("--tta", action="store_true",
-                   help="test-time augmentation (not ported yet: raises)")
+                   help="test-time augmentation (TEST.AUG multi-scale + flip)")
     p.add_argument("--params", action="store_true",
                    help="print the per-module parameter census "
                         "(reference eval_glass.py:147-181)")
@@ -110,11 +112,6 @@ def main(argv=None) -> dict:
     to ``<output>/results.json``."""
     args = parse_args(argv)
     cfg = setup(args)
-    if args.tta or cfg.TEST.AUG.ENABLED:
-        raise NotImplementedError(
-            "test-time augmentation (--tta, TEST.AUG.ENABLED) is not ported to "
-            "glass_tpu_torch yet (the inference-variants slice, ROADMAP item 10)"
-        )
 
     from .data import DatasetManager
     from .evaluation import Lexicon, TextEvaluator
@@ -129,6 +126,12 @@ def main(argv=None) -> dict:
         from .utils.common import format_parameter_census, parameter_census
 
         print(format_parameter_census(parameter_census(runner.model), per_param=True))
+    tta_runner = None
+    if args.tta or cfg.TEST.AUG.ENABLED:
+        from .inference.tta import GlassRunnerWithTTA
+
+        logger.info("Running inference with test-time augmentation ...")
+        tta_runner = GlassRunnerWithTTA(runner)
     lexicon = None
     if args.lexicon:
         lexicon = Lexicon.from_file(args.lexicon, weighted=args.weighted_ed)
@@ -167,7 +170,9 @@ def main(argv=None) -> dict:
                 batch_images.append(image)
             if not batch_images:
                 continue
-            if chunk == 1:
+            if tta_runner is not None:
+                preds_list = [tta_runner.eval_call(im) for im in batch_images]
+            elif chunk == 1:
                 preds_list = [runner.eval_call(batch_images[0])]
             else:
                 preds_list = runner.eval_batch_call(batch_images, batch_size=chunk)

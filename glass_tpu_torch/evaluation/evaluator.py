@@ -53,7 +53,7 @@ def check_single_process(what: str) -> None:
     if world_size() > 1:
         raise NotImplementedError(
             f"{what}: multi-process evaluation is not ported to glass_tpu_torch "
-            "yet (the distributed slice, ROADMAP item 12); run one process"
+            "yet (the distributed slice); run one process"
         )
 
 
@@ -286,7 +286,7 @@ class TextEvaluator:
         The reference gathers predictions to rank 0 over NCCL/gloo
         (``text_evaluator.py:246-252``).  A multi-process evaluation
         (``torch.distributed`` initialized with a world size above 1) is the
-        distributed slice of the port (ROADMAP item 12) and raises here.
+        distributed slice of the port and raises here.
         """
         check_single_process("TextEvaluator.gather_across_processes")
 

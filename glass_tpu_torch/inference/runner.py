@@ -9,6 +9,13 @@ the edge and the RPN's anchor mask depends on it), run the model, rescale
 the predictions and post-process them on the host (or merge on the device,
 ``POST_PROCESSING.ON_DEVICE``).
 
+``TPU.TWO_STAGE_INFERENCE`` runs single-image serving (``run_model``, so
+``__call__`` and ``eval_call``) in two stages: detection, then the
+recognizer and the mask head on the smallest ``TPU.WORD_BUCKETS`` row count
+that holds the detections.  Batched serving stays one-stage, as glass_tpu's
+does.  ``forward_with_given_boxes`` runs the heads on boxes given from
+outside (the TTA path, ``inference/tta.py``).
+
 Batched serving (``batch_call``, ``eval_batch_call``) uploads a padded
 batch in one pinned copy, runs the per-image program over its rows
 (``TPU.SERVE_BATCH_MODE="map"``: outputs equal b = 1 serving bit for bit)
@@ -30,10 +37,18 @@ from typing import List, Optional, Tuple
 import cv2
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..config import CfgNode, get_cfg
 from ..device import resolve_device
-from ..models import GlassArch, GlassRCNN, glass_inference_single
+from ..models import (
+    GlassArch,
+    GlassRCNN,
+    glass_detect_stage,
+    glass_heads_stage,
+    glass_inference_single,
+)
+from ..models.glass_rcnn import backbone_features, pack_box_pyramid, preprocess
 from ..models.context import BatchNorm2d
 from ..models.local_extractor import BasicBlock
 from ..models.resnet import BottleneckBlock
@@ -41,6 +56,7 @@ from ..postprocess import build_post_processor, detector_postprocess
 from ..postprocess.post_processor import scale_rotated_np
 from ..structures import Instances
 from ..text import TextCodec, decode_instance_texts
+from ..train.checkpoint import load_weights_
 from ..utils.common import rgb2grey
 
 logger = logging.getLogger(__name__)
@@ -116,21 +132,6 @@ def calibrate_batch_norm_(model: GlassRCNN, image: torch.Tensor, content_hw) -> 
     return model
 
 
-def load_checkpoint_(model: GlassRCNN, path: str) -> GlassRCNN:
-    """Load a detectron2-named ``.pth`` (or a port ``state_dict``) onto the
-    model; buffers of the reference that the port re-derives are skipped."""
-    data = torch.load(path, map_location="cpu", weights_only=False)
-    state = data.get("model", data)
-    own = model.state_dict()
-    loaded = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
-              for k, v in state.items() if k in own}
-    missing = sorted(set(own) - set(loaded))
-    if missing:
-        logger.warning("%d model weights not in the checkpoint, e.g. %s", len(missing), missing[:5])
-    model.load_state_dict(loaded, strict=False)
-    return model
-
-
 def _set_text_fields(inst: Instances, out: dict, sel) -> None:
     if "text_probs" in out:
         inst.pred_text_prob = out["text_probs"][sel]
@@ -200,11 +201,6 @@ class GlassRunner:
         ``state_dict``, else ``model_path``, else a random init from seed 0."""
         self.device = resolve_device(device)
         self.cfg = cfg if cfg is not None else get_cfg(config_path, opts)
-        if self.cfg.TPU.TWO_STAGE_INFERENCE:
-            raise NotImplementedError(
-                "TPU.TWO_STAGE_INFERENCE is not ported to glass_tpu_torch yet "
-                "(the inference-variants slice, ROADMAP item 10)"
-            )
         self.post_process_flag = post_process
         self.arch = GlassArch.from_config(self.cfg)
         model = GlassRCNN(self.arch)
@@ -212,7 +208,7 @@ class GlassRunner:
             model.load_state_dict(state_dict)
         elif model_path:
             logger.info("Loading checkpoint %s", model_path)
-            load_checkpoint_(model, model_path)
+            load_weights_(model, model_path)
         else:
             logger.warning("No checkpoint given; random-initializing weights (seed 0)")
             random_init_(model, 0)
@@ -256,17 +252,45 @@ class GlassRunner:
     # -- model invocation -------------------------------------------------
     def run_model(self, image: np.ndarray) -> dict:
         """Pad an already-resized HWC BGR image into its bucket and run the
-        model: the fixed-capacity outputs as numpy arrays."""
+        model (in two stages with TPU.TWO_STAGE_INFERENCE): the
+        fixed-capacity outputs as numpy arrays."""
         h, w = image.shape[:2]
         bh, bw = self._pick_bucket(h, w)
         pad_dtype = np.uint8 if image.dtype == np.uint8 else np.float32
         padded = np.zeros((bh, bw, 3), pad_dtype)
         padded[:h, :w] = image
         with torch.inference_mode():
-            out = glass_inference_single(
-                self.model, torch.from_numpy(padded).to(self.device), (h, w)
-            )
+            img = torch.from_numpy(padded).to(self.device)
+            if self.cfg.TPU.TWO_STAGE_INFERENCE:
+                out = self._run_two_stage(img, (h, w))
+            else:
+                out = glass_inference_single(self.model, img, (h, w))
             return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def _run_two_stage(self, image: torch.Tensor, hw) -> dict:
+        """Two-stage inference: detect, then run the recognizer and the
+        mask head on the smallest of TPU.WORD_BUCKETS (or
+        DETECTIONS_PER_IMAGE) rows that holds the detections.  One host
+        read (the detection count); the valid rows go first in a stable
+        order, padding rows are (0, 0, 1, 1, 0), and the heads' fields are
+        scattered back into zeroed rows of the full detection set."""
+        det, feats, norm, pyr = glass_detect_stage(self.model, image, hw)
+        valid = det["valid"]
+        n = int(valid.sum())
+        d = self.arch.detections_per_image
+        cap = next(b for b in sorted(self.cfg.TPU.WORD_BUCKETS) + [d] if b >= n)
+        order = torch.sort((~valid).to(torch.int32), stable=True).indices[:n]
+        boxes = torch.zeros((cap, 5), dtype=torch.float32, device=image.device)
+        boxes[:, 2:4] = 1.0
+        boxes[:n] = det["boxes"][order]
+        # the raw uint8 image only under f32 compute (glass_inference_single)
+        raw = image if image.dtype == torch.uint8 and self.arch.torch_dtype == torch.float32 else None
+        heads = glass_heads_stage(self.model, feats, norm, pyr, boxes, raw_image=raw)
+        for key, t in heads.items():
+            full = torch.zeros((d,) + t.shape[1:], dtype=t.dtype, device=t.device)
+            full[order] = t[:n]
+            det[key] = full
+        return det
 
     def run_on_resized(self, image: np.ndarray) -> Instances:
         """Raw (un-postprocessed) instances at the resized image's scale."""
@@ -316,13 +340,13 @@ class GlassRunner:
         if mode != "map":
             raise NotImplementedError(
                 f"TPU.SERVE_BATCH_MODE={mode!r} is not ported to glass_tpu_torch yet "
-                "(the inference-variants slice, ROADMAP item 10); use 'map'"
+                "(the vmap-serving slice); use 'map'"
             )
         if (getattr(self.cfg.TPU, "SERVE_DATA_PARALLEL", False) and self.device.type == "cuda"
                 and torch.cuda.device_count() > 1):
             raise NotImplementedError(
                 "TPU.SERVE_DATA_PARALLEL over more than one GPU is not ported to "
-                "glass_tpu_torch yet (the distributed slice, ROADMAP item 12)"
+                "glass_tpu_torch yet (the distributed slice)"
             )
         model = self.model
 
@@ -523,6 +547,49 @@ class GlassRunner:
                     pr = self.post_processor(pr)
                 results[i] = pr
         return results
+
+    def forward_with_given_boxes(self, image: np.ndarray, instances: Instances) -> Instances:
+        """The recognizer (and mask head) on boxes given in ``image``'s frame
+        (d2's ``forward_with_given_boxes``; the TTA path): the demo scale
+        rule, a float32 padded image (no raw-image crop), the first
+        DETECTIONS_PER_IMAGE boxes scaled by the ratio into rows padded with
+        (0, 0, 1, 1, 0), the backbone, then the heads with class 0.  Returns
+        those instances with their text and mask fields, and ``pred_rboxes``
+        in the frame they were given in."""
+        scale_ratio = self.get_inference_scale_ratio(image.shape)
+        if scale_ratio != 1:
+            nh = int(np.round(scale_ratio * image.shape[0]))
+            nw = int(np.round(scale_ratio * image.shape[1]))
+            resized = cv2.resize(image.astype(np.float32), (nw, nh))
+        else:
+            resized = image.astype(np.float32)
+        h, w = resized.shape[:2]
+        bh, bw = self._pick_bucket(h, w)
+        padded = np.zeros((bh, bw, 3), np.float32)
+        padded[:h, :w] = resized
+
+        d = self.cfg.TEST.DETECTIONS_PER_IMAGE
+        n = min(len(instances), d)
+        boxes = np.zeros((d, 5), np.float32)
+        boxes[:, 2:4] = 1.0
+        if n:
+            boxes[:n] = scale_rotated_np(np.asarray(instances.pred_boxes)[:n], scale_ratio, scale_ratio)
+
+        model = self.model
+        with torch.inference_mode():
+            with record_function("glass.backbone"):
+                norm = preprocess(model, torch.from_numpy(padded).to(self.device))
+                feats = backbone_features(model, norm)
+                pyr = (pack_box_pyramid(model, feats)
+                       if self.arch.mask_on and self.arch.mask_inference else None)
+            out = glass_heads_stage(model, feats, norm, pyr, torch.from_numpy(boxes).to(self.device))
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+        instances = instances[np.arange(n)]
+        _set_text_fields(instances, out, np.arange(n))
+        if "mask_probs" in out:
+            instances.pred_masks = _unpack_masks(out["mask_probs"][:n])
+            instances.pred_rboxes = np.asarray(instances.pred_boxes)
+        return instances
 
     def decode_texts(self, preds: Instances):
         return decode_instance_texts(preds, self.codec)

@@ -3,5 +3,7 @@ from .glass_rcnn import (
     GlassRCNN,
     emit_mask,
     emit_text,
+    glass_detect_stage,
+    glass_heads_stage,
     glass_inference_single,
 )

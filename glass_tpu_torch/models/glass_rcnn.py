@@ -206,12 +206,12 @@ def _check_ported(arch: GlassArch, train: bool = False) -> None:
     if train and arch.remat_backbone:
         raise NotImplementedError(
             "TPU.REMAT_BACKBONE is not ported to glass_tpu_torch yet "
-            "(ROADMAP item 11, what waits: backbone rematerialization)"
+            "(the training-options slice: backbone rematerialization)"
         )
     if train and (arch.recognizer_decoder == "CTC" or arch.pooler_pad == "FeatPadV2"):
         raise NotImplementedError(
             "CTC and FeatPadV2 training are not ported to glass_tpu_torch yet; they come "
-            "with their inference variants (ROADMAP item 10)"
+            "with their inference variants (the model-family-variants and CTC slices)"
         )
     unported = {
         "RECOGNIZER_HEAD.POOLER_PAD": (arch.pooler_pad, ("",)),
@@ -226,7 +226,7 @@ def _check_ported(arch: GlassArch, train: bool = False) -> None:
         if value not in ok:
             raise NotImplementedError(
                 f"{key}={value!r} is not ported to glass_tpu_torch yet (supported: {ok}); "
-                "see ROADMAP.md for the slices still to come"
+                "the model-family-variants, CTC and float16 slices of ROADMAP.md port the rest"
             )
 
 
@@ -435,8 +435,55 @@ def emit_text(arch: GlassArch, probs: torch.Tensor) -> dict:
     return {"text_probs": probs}
 
 
+def glass_detect_stage(model: GlassRCNN, image: torch.Tensor, content_hw):
+    """Stage 1 of two-stage inference, and the first half of
+    ``glass_inference_single``: backbone, RPN, box head and NMS.
+
+    Returns the detection fields (boxes, scores, classes, orientations,
+    valid), the FPN features, the normalized image and the packed box
+    pyramid; the features and the pyramid stay on the device for stage 2,
+    which pools the mask head from the pyramid as it is (no second
+    packing)."""
+    content_hw = (int(content_hw[0]), int(content_hw[1]))
+    with record_function("glass.backbone"):
+        norm = preprocess(model, image)
+        feats = backbone_features(model, norm)
+        pyr = pack_box_pyramid(model, feats)
+    det = detect_single_image(model, feats, pyr, content_hw)
+    out = {
+        "boxes": det.boxes,
+        "scores": det.scores,
+        "classes": det.classes,
+        "orientations": det.orientations,
+        "valid": det.valid,
+    }
+    return out, feats, norm, pyr
+
+
+def glass_heads_stage(model: GlassRCNN, feats, norm: torch.Tensor, pyr: PackedPyramid,
+                      boxes: torch.Tensor, classes=None, raw_image=None) -> dict:
+    """Stage 2: the recognizer (text fields, ``emit_text``) and, with
+    MASK_INFERENCE, the mask head on a (R, 5) box set; ``classes`` None
+    is class 0 for every row (the two-stage and given-boxes paths).
+    ``raw_image``: the (H, W, 3) uint8 image, cropped with the
+    normalization folded in."""
+    arch = model.arch
+    out = {}
+    if arch.recognizer_on:
+        with record_function("glass.recognizer"):
+            probs = recognize_single_image(model, feats, norm, boxes, raw_image=raw_image)
+            out.update(emit_text(arch, probs))
+    if arch.mask_on and arch.mask_inference:
+        with record_function("glass.mask_head"):
+            if classes is None:
+                classes = torch.zeros((boxes.shape[0],), dtype=torch.int32, device=boxes.device)
+            out["mask_probs"] = emit_mask(arch, mask_single_image(model, pyr, boxes, classes))
+    return out
+
+
 def glass_inference_single(model: GlassRCNN, image: torch.Tensor, content_hw) -> dict:
-    """Full single-image inference.
+    """Full single-image inference: ``glass_detect_stage`` then
+    ``glass_heads_stage`` on every detection row.
 
     image: (H_pad, W_pad, 3) raw BGR image (uint8 or float), content at the
         top left, on the model's device.
@@ -451,32 +498,11 @@ def glass_inference_single(model: GlassRCNN, image: torch.Tensor, content_hw) ->
     ``glass.mask_head``), so a ``torch.profiler`` trace attributes device
     kernels to stages.
     """
-    arch = model.arch
-    content_hw = (int(content_hw[0]), int(content_hw[1]))
-    with record_function("glass.backbone"):
-        norm = preprocess(model, image)
-        feats = backbone_features(model, norm)
-        pyr = pack_box_pyramid(model, feats)
-    det = detect_single_image(model, feats, pyr, content_hw)
-    out = {
-        "boxes": det.boxes,
-        "scores": det.scores,
-        "classes": det.classes,
-        "orientations": det.orientations,
-        "valid": det.valid,
-    }
-    if arch.recognizer_on:
-        # uint8 image + f32 compute: crop the raw image with the
-        # normalization folded in (exact); under bf16 the crops are bf16
-        # anyway, so crop the normalized image.
-        use_raw = image.dtype == torch.uint8 and arch.torch_dtype == torch.float32
-        with record_function("glass.recognizer"):
-            probs = recognize_single_image(
-                model, feats, norm, det.boxes, raw_image=image if use_raw else None
-            )
-            out.update(emit_text(arch, probs))
-    if arch.mask_on and arch.mask_inference:
-        with record_function("glass.mask_head"):
-            probs = mask_single_image(model, pyr, det.boxes, det.classes)
-            out["mask_probs"] = emit_mask(arch, probs)
+    out, feats, norm, pyr = glass_detect_stage(model, image, content_hw)
+    # uint8 image + f32 compute: crop the raw image with the normalization
+    # folded in (exact); under bf16 the crops are bf16 anyway, so crop the
+    # normalized image.
+    use_raw = image.dtype == torch.uint8 and model.arch.torch_dtype == torch.float32
+    out.update(glass_heads_stage(model, feats, norm, pyr, out["boxes"], out["classes"],
+                                 raw_image=image if use_raw else None))
     return out

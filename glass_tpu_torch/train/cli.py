@@ -9,7 +9,7 @@ then ``KEY VALUE`` opts) plus ``--device`` (``cuda``, the default, or
         --datasets data_configs/example_datasets.yaml --output train_out
 
 Not ported yet, and refused: ``--distributed`` and more than one process
-(ROADMAP item 12).
+(the distributed slice).
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ def main(argv=None):
     if args.distributed:
         raise NotImplementedError(
             "--distributed (multi-process training) is not ported to glass_tpu_torch yet "
-            "(the distributed slice, ROADMAP item 12)"
+            "(the distributed slice)"
         )
     cfg = setup(args)
     from .trainer import Trainer

@@ -468,14 +468,14 @@ def batch_to_device(batch: dict, device, non_blocking: bool = True) -> dict:
 
 
 def check_trainable(cfg) -> None:
-    """Training options this port does not run yet raise, naming the ROADMAP
-    item that will port them: ``TPU.TRAIN_LOOP_STEPS > 1`` here, the
+    """Training options this port does not run yet raise, naming the slice
+    that will port them: ``TPU.TRAIN_LOOP_STEPS > 1`` here, the
     model's (``TPU.REMAT_BACKBONE``, CTC, FeatPadV2) in ``_check_ported``."""
     steps = int(getattr(cfg.TPU, "TRAIN_LOOP_STEPS", 1) or 1)
     if steps > 1:
         raise NotImplementedError(
             f"TPU.TRAIN_LOOP_STEPS={steps} (the in-graph multi-step loop) is not ported to "
-            "glass_tpu_torch yet (ROADMAP item 11, what waits)"
+            "glass_tpu_torch yet (the training-options slice)"
         )
     _check_ported(GlassArch.from_config(cfg), train=True)
 

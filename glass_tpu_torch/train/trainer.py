@@ -7,7 +7,8 @@ the port's own ``GlassRunner``, a checkpoint on SIGTERM/SIGINT, the
 ``VIS_PERIOD`` minibatch dump and precise BN before an evaluation.
 
 Not ported yet, and refused: ``TPU.TRAIN_LOOP_STEPS > 1``,
-``TPU.REMAT_BACKBONE`` (ROADMAP item 11), more than one process (item 12).
+``TPU.REMAT_BACKBONE`` (the training-options slice), more than one process
+(the distributed slice).
 """
 
 from __future__ import annotations
@@ -77,7 +78,7 @@ def check_single_process() -> None:
     if world_size() > 1 or int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
         raise NotImplementedError(
             "glass_tpu_torch.train: multi-process training is not ported yet "
-            "(the distributed slice, ROADMAP item 12); run one process"
+            "(the distributed slice); run one process"
         )
 
 

@@ -121,11 +121,16 @@ def test_raw_batch_outputs_equal_b1(model):
 
 
 def test_unported_batch_modes_raise(model):
+    """``vmap`` raises.  TPU.TWO_STAGE_INFERENCE is ported: batched serving
+    stays one-stage under it (glass_tpu's batched program ignores the
+    flag), so its eval_batch_call equals the one-stage runner's bit for
+    bit."""
     imgs = images(5, 2)
     with pytest.raises(NotImplementedError, match="SERVE_BATCH_MODE"):
         _runner(model, "TPU.SERVE_BATCH_MODE", "vmap").eval_batch_call(imgs, batch_size=2)
-    with pytest.raises(NotImplementedError, match="TWO_STAGE"):
-        _runner(model, "TPU.TWO_STAGE_INFERENCE", "True")
+    two_stage = _runner(model, "TPU.TWO_STAGE_INFERENCE", "True")
+    _assert_same(two_stage.eval_batch_call(imgs, batch_size=2),
+                 _runner(model).eval_batch_call(imgs, batch_size=2))
 
 
 def _steps_before_knife_edge(want_probs):

@@ -180,10 +180,16 @@ def test_per_sample_json_equal(runs):
     assert got == want
 
 
-def test_tta_and_multi_process_raise(tmp_path, monkeypatch):
+def test_tta_and_multi_process_raise(runs, tmp_path, monkeypatch):
+    """``--tta`` is ported (tests/test_torch_tta.py holds it against
+    tools/eval_glass.py --tta): here it evaluates with one view.  More than
+    one process still raises."""
     args = ["--config", ICDAR15, "--output", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="test-time augmentation"):
-        port_eval.main(args + ["--tta"])
+    common = ["--datasets", os.path.join(runs, "datasets.yaml"), "--model", os.path.join(runs, "model.pth")]
+    res = port_eval.main(args + common + ["--tta", "--max-images", "1", *OPTS,
+                                          "TEST.AUG.MIN_SIZES", "[64]", "TEST.AUG.FLIP", "False"])
+    assert set(res["toy_test"]) == {"E2E_RESULTS", "DETECTION_ONLY_RESULTS"}
+    assert os.path.exists(os.path.join(tmp_path, "results.json"))
     import torch.distributed as dist
 
     monkeypatch.setattr(dist, "is_initialized", lambda: True)

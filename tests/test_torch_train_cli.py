@@ -212,4 +212,4 @@ def test_cli_module_refuses_distributed():
     proc = subprocess.run([sys.executable, "-m", "glass_tpu_torch.train", "--config", CONFIG,
                            "--distributed", "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
                           timeout=300)
-    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr and "item 12" in proc.stderr
+    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr and "distributed slice" in proc.stderr

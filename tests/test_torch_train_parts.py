@@ -474,7 +474,7 @@ def test_unported_training_options_raise(opts, match):
 
 @pytest.mark.parametrize("kw", [dict(recognizer_decoder="CTC"), dict(pooler_pad="FeatPadV2")])
 def test_ctc_and_featpad_training_raise(kw):
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="model-family-variants and CTC slices"):
         _check_ported(GlassArch(**kw), train=True)
 
 
