@@ -46,8 +46,10 @@ Phases:
      bucket, C=256, the box, mask and recognizer poolers with 512, 128 and
      8 rois) in float32 and bfloat16, beside K1's forward at the same
      shapes; edge cases 0 and 1 roi, rois straddling the border, 512 rois
-     on one pixel and long rotated words on the recognizer's level (tiles
-     on the direct path).  The f32 output's tolerance is the bound of two
+     on one pixel, long rotated words on the recognizer's level (tiles
+     on the direct path) and FeatPadV2's recognizer rois (8 and 64 word
+     rois widened to the pool's aspect, forward and backward).  The f32
+     output's tolerance is the bound of two
      reordered f32 sums (the kernels' atomics add in another order); the
      bf16 output is held to the plain f32 result rounded to bf16 within
      that bound plus one bf16 ulp.  Prints per case the direct-path tiles,
@@ -91,6 +93,21 @@ Phases:
      3 steps of glass_pretrain.yaml at its IMS_PER_BATCH 8 from a synthetic
      caffe2 R-50 trunk ``.pkl`` given as ``--weights`` (every trunk tensor
      set from it, every loss finite, s/step and peak memory).
+ 10. the model-family variants, at full width in bfloat16 from phase 4's
+     weights (each option's own tensors seeded): FeatPadV2, the GC fusion
+     types channel_mul and channel_concat, SimpleAttention, LocalOnly,
+     Conv1x1, CNN_V2 and CTC, each through ``GlassRunner.__call__`` on 2 of
+     phase 4's images after one warm-up (``__call__`` and ``run_model``
+     medians, exactly 3 K1 and 1 K2 launches an image, finite outputs),
+     and each option's recognizer in f32 on the card against the CPU from
+     the card's features and detections of one image (phase 5's
+     tolerances); ``aster_decode_beam`` (width 5) on the card against the
+     CPU over phase 4's f32 encoder states (best-beam scores within 1e-3,
+     and the card's beams, rescored on the CPU, within 1e-3 of the CPU's
+     best); CTC and FeatPadV2 training through
+     ``glass_tpu_torch.train.main``, 5 steps each of the finetune config at
+     IMS_PER_BATCH 1 (every loss finite, 3, 3 and 1 K1, K1b and K2 launches
+     a step, K1b's direct-path tiles by pooler, s/step, peak memory).
 
 Prints, on the last two lines, a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``, and copies everything it prints into
@@ -104,13 +121,16 @@ steps_b4=1, overfit_steps=10, step_opts=[...])``, and phase 9 with
 ``phase_variants(state_dict, images, out_dir, device="cpu", opts=[...small
 bucket...], eval_hw=(96, 128), n_timed=3, tta_opts=[TEST.AUG.MIN_SIZES
 [64, 96], TEST.AUG.MAX_SIZE 128], train_opts=[...small shapes...],
-steps=2)``; they take ``device`` for that alone.
+steps=2)``, and phase 10 with ``phase_model_variants(state_dict, images,
+out_dir, device="cpu", opts=[...small bucket...], train_opts=[...small
+shapes...], steps=2, hw=(96, 128))``; they take ``device`` for that alone.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import json
 import math
 import os
@@ -1308,7 +1328,10 @@ def phase_k1b(rng):
     forward at the same shapes, then the edge cases: 0 and 1 roi, rois
     straddling the border (clamped taps), 512 rois on one pixel (every
     flush on the same rows; timed) and long rotated words on the
-    recognizer's single level (tiles on the direct path)."""
+    recognizer's single level (tiles on the direct path), and FeatPadV2's
+    widened word rois on that level, forward and backward."""
+    from glass_tpu_torch.models.pooler_pad import feat_pad_v2_boxes
+
     h, w = TRAIN_BUCKET_HW
     fwd, bwd, edge = [], [], []
     for name, n in TRAIN_ROIS.items():
@@ -1339,6 +1362,17 @@ def phase_k1b(rng):
         pyr, levels, grid, out_hw = _train_pooler_inputs("recognizer", erng, dtype, rois)
         edge.append(k1b_case("recognizer long words", pyr, rois, levels, grid, out_hw, erng, timed=False,
                              want_direct=True))
+    # FeatPadV2: the recognizer pool takes word rois widened to its aspect
+    # (up to 4x wider), drawn apart so the cases above keep their inputs
+    frng = np.random.RandomState(3)
+    rec_hw = next(p for p in POOLERS if p[0] == "recognizer")[1]
+    for n in (TRAIN_ROIS["recognizer"], 64):
+        rois = feat_pad_v2_boxes(torch.from_numpy(word_rois(frng, n, h, w)).cuda(), rec_hw)[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            pyr, levels, grid, out_hw = _train_pooler_inputs("recognizer", frng, dtype, rois)
+            fwd.append(k1_case(f"FeatPadV2 words R={n}", pyr, rois, levels, grid, out_hw, timed=False))
+            edge.append(k1b_case(f"recognizer FeatPadV2 words R={n}", pyr, rois, levels, grid, out_hw, frng,
+                                 timed=False))
     return fwd, bwd, edge
 
 
@@ -2041,6 +2075,285 @@ def _phase_variants(state_dict, images, root, device, opts, eval_hw, n_timed, tt
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the model-family variants
+# ---------------------------------------------------------------------------
+
+_RH = "MODEL.ROI_RECOGNIZER_HEAD."
+CTC_OPTS = [_RH + "RECOGNIZER_HEAD.DECODER.NAME", "CTC", _RH + "LABELS_TYPE", "ctc"]
+FEATPAD_OPTS = [_RH + "RECOGNIZER_HEAD.POOLER_PAD.NAME", "FeatPadV2"]
+# each option that changes the serving model
+MODEL_VARIANTS = {
+    "FeatPadV2": FEATPAD_OPTS,
+    "channel_mul": ["MODEL.HYBRID_FUSION.FUSION_TYPE", "channel_mul"],
+    "channel_concat": ["MODEL.HYBRID_FUSION.FUSION_TYPE", "channel_concat"],
+    "SimpleAttention": ["MODEL.HYBRID_FUSION.NAME", "SimpleAttention"],
+    "LocalOnly": ["MODEL.HYBRID_FUSION.NAME", "LocalOnly"],
+    "Conv1x1": ["MODEL.HYBRID_FUSION.NAME", "Conv1x1"],
+    "CNN_V2": [_RH + "RECOGNIZER_HEAD.BACKBONE.NAME", "CNN_V2"],
+    "CTC": CTC_OPTS,
+}
+N_VARIANT_IMAGES = 2      # timed __call__ per option, after one warm-up
+VARIANT_TRAIN_STEPS = 5   # CTC and FeatPadV2 training, IMS_PER_BATCH 1
+BEAM_WIDTH = 5
+BEAM_SCORE_ATOL = 1e-3    # best-beam log-probability, card against CPU (f32)
+
+
+def variant_weights(state_dict, cfg) -> dict:
+    """Phase 4's weights for an option's model: every tensor whose name and
+    shape it shares, the option's own (a fusion module's, CNN_V2's conv3,
+    the CTC head: all in the fusion module or the recognizer head) from
+    ``random_init_`` at seed 1."""
+    from glass_tpu_torch.inference.runner import random_init_
+    from glass_tpu_torch.models import GlassArch, GlassRCNN
+
+    model = GlassRCNN(GlassArch.from_config(cfg))
+    random_init_(model.roi_heads.fusion_net, seed=1)
+    random_init_(model.roi_heads.recognizer_head, seed=1)
+    own = model.state_dict()
+    return {k: (state_dict[k] if k in state_dict and state_dict[k].shape == v.shape else v).clone()
+            for k, v in own.items()}
+
+
+class DirectTiles:
+    """Sums, per pooler output size, the bin tiles that K1b sent to its
+    direct path (the kernel's stats, added up on the device and read once
+    at the end); the launch and its count are the wrapper's own."""
+
+    def __enter__(self):
+        from glass_tpu_torch.ops import roi_align_rotated as ra
+
+        self.ra, self.fn, self.sums = ra, ra.roi_align_rotated_packed_backward, {}
+
+        def counted(grad_out, *a, **k):
+            grad, stats = self.fn(grad_out, *a, return_stats=True, **k)
+            key = "x".join(str(int(s)) for s in grad_out.shape[1:3])
+            self.sums[key] = self.sums.get(key, 0) + stats[0]
+            return grad
+
+        ra.roi_align_rotated_packed_backward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.ra.roi_align_rotated_packed_backward = self.fn
+
+    def counts(self) -> dict:
+        return {k: int(v) for k, v in self.sums.items()}
+
+
+def beam_rescore(unit, x, tokens):
+    """Each row's total log-probability of ``tokens`` under the decoder, as
+    ``aster_decode_beam`` scores a beam: teacher-forced, the steps after the
+    first ``eos`` adding nothing."""
+    from glass_tpu_torch.models.beam_search import EOS_INDEX
+    from glass_tpu_torch.models.recognizer import aster_decode_train
+
+    tokens = tokens.long()
+    targets = torch.cat([torch.zeros_like(tokens[:, :1]), tokens], dim=1)
+    logits = aster_decode_train(unit, x, targets, tokens.shape[1])
+    logp = torch.log_softmax(logits.float(), dim=-1).gather(-1, tokens[..., None])[..., 0]
+    eos = (tokens == EOS_INDEX).int()
+    after = (torch.cumsum(eos, dim=1) - eos) > 0
+    return torch.where(after, torch.zeros_like(logp), logp).sum(dim=1)
+
+
+def phase_model_variants(state_dict, images, out_dir, device="cuda", opts=(), train_opts=(),
+                         steps=VARIANT_TRAIN_STEPS, hw=(720, 1280)):
+    """The model-family variants on the card at full width, bf16, phase 4's
+    weights (each option's own tensors seeded): each option that changes the
+    serving model through ``GlassRunner.__call__``; each option's recognizer
+    in f32 on the card against the CPU from the same features and
+    detections; CTC and FeatPadV2 training through
+    ``glass_tpu_torch.train.main``; ``aster_decode_beam`` on the card against
+    the CPU.  ``opts``, ``train_opts`` and ``hw`` cut the sizes for a CPU
+    rehearsal."""
+    device = torch.device(device)
+    root = os.path.join(out_dir, "model_variants")
+    os.makedirs(root, exist_ok=True)
+    try:
+        return _phase_model_variants(state_dict, images, root, device, list(opts), list(train_opts),
+                                     steps, hw)
+    finally:  # images and checkpoints are large; the logs stay
+        import glob
+        import shutil
+
+        shutil.rmtree(os.path.join(root, "ds"), ignore_errors=True)
+        for f in glob.glob(os.path.join(root, "**", "*.pth"), recursive=True):
+            os.remove(f)
+
+
+def _variant_recognizer_check(name, cfg32, weights, base, device):
+    """One option's recognizer in f32 on the card and on the CPU from the
+    card's features and detections (``base``): text probabilities and ids
+    on every step before a knife edge (ASTER feeds a step's choice to the
+    rest of its row; CTC's steps are independent), at phase 5's tolerances."""
+    from glass_tpu_torch.models import GlassArch, GlassRCNN
+    from glass_tpu_torch.models import glass_rcnn as gr
+
+    cpu_model = GlassRCNN(GlassArch.from_config(cfg32)).eval()
+    cpu_model.load_state_dict(weights)
+    models = [copy.deepcopy(cpu_model).to(device), cpu_model]
+    arch = cpu_model.arch
+    feats, norm, boxes = base
+    with torch.inference_mode():
+        probs = gr.recognize_single_image(models[0], feats, norm, boxes).cpu().numpy()
+        cprobs = gr.recognize_single_image(models[1], {k: v.cpu() for k, v in feats.items()}, norm.cpu(),
+                                           boxes.cpu()).numpy()
+    top2 = np.sort(cprobs, -1)[..., -2:]
+    edge = top2[..., 1] - top2[..., 0] < KNIFE_EDGE
+    steps = ~edge if arch.recognizer_decoder == "CTC" else ~np.cumsum(edge, axis=1).astype(bool)
+    perr = float(np.abs(probs - cprobs)[steps].max())
+    same = bool((probs.argmax(-1)[steps] == cprobs.argmax(-1)[steps]).all())
+    ok = perr <= PROB_ATOL and same
+    log(f"variants {name} recognizer card vs CPU (f32, {probs.shape}): max|card-CPU| {perr:.3g} over "
+        f"{int(steps.sum())} of {steps.size} steps before a knife edge (tol {PROB_ATOL}); ids equal {same} "
+        f"-> {'ok' if ok else 'FAILED'}")
+    return ok, perr
+
+
+def _phase_model_variants(state_dict, images, root, device, opts, train_opts, steps, hw):
+    from glass_tpu_torch import train as port_train
+    from glass_tpu_torch.inference import GlassRunner
+    from glass_tpu_torch.models import glass_rcnn as gr
+    from glass_tpu_torch.models.beam_search import aster_decode_beam
+    from glass_tpu_torch.ops import _cuda
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "CPU"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    start = time.perf_counter()
+    launches = collections.Counter()
+    failed, out = [], {"serving": {}, "train": {}}
+
+    # the f32 features and detections every option's recognizer check starts
+    # from (the options change the recognizer alone), and the beam's input
+    base_runner = GlassRunner(cfg=eval_cfg("float32", opts=opts), state_dict=state_dict, device=device)
+    bm = base_runner.model
+    image = images[0]
+    h, w = image.shape[:2]
+    bh, bw = base_runner._pick_bucket(h, w)
+    padded = np.zeros((bh, bw, 3), np.float32)
+    padded[:h, :w] = image
+    with torch.inference_mode():
+        norm = gr.preprocess(bm, torch.from_numpy(padded).to(device))
+        feats = gr.backbone_features(bm, norm)
+        det = gr.detect_single_image(bm, feats, gr.pack_box_pyramid(bm, feats), (h, w))
+        enc = gr.recognizer_encode(bm, feats, norm, det.boxes).float()
+    base = (feats, norm, det.boxes)
+
+    # 1. serving, per option
+    for name, vopts in MODEL_VARIANTS.items():
+        cfg = eval_cfg("bfloat16", opts=[*opts, *vopts])
+        weights = variant_weights(state_dict, cfg)
+        runner = GlassRunner(cfg=cfg, state_dict=weights, device=device)
+        run_model, model_ms, raws = runner.run_model, [], []
+
+        def timed_run_model(img, run_model=run_model, model_ms=model_ms, raws=raws):
+            t0 = time.perf_counter()
+            res = run_model(img)
+            model_ms.append((time.perf_counter() - t0) * 1e3)
+            raws.append(res)
+            return res
+
+        runner.run_model = timed_run_model
+        sync()
+        _cuda.LAUNCHES.clear()
+        runner(images[-1])  # warm-up
+        sync()
+        model_ms.clear()
+        raws.clear()
+        call_ms, preds = [], []
+        for img in images[:N_VARIANT_IMAGES]:
+            t0 = time.perf_counter()
+            preds.append(runner(img))
+            sync()
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+        got = dict(_cuda.LAUNCHES)
+        launches.update(got)
+        n = N_VARIANT_IMAGES + 1
+        if cuda:
+            _launch_check(f"{name} serving", got, {"roi_align_rotated": 3 * n, "crop_rois": n})
+        finite = all(np.isfinite(np.asarray(v, np.float32)).all() for r in raws for v in r.values()) and all(
+            np.isfinite(np.asarray(p.pred_boxes)).all() for p in preds)
+        texts = runner.decode_texts(preds[0])[0] if len(preds[0]) else []
+        log(f"variants {name} ({card}): {N_VARIANT_IMAGES} images through __call__ (bf16, one warm-up): "
+            f"__call__ median {np.median(call_ms):.2f} ms, run_model median {np.median(model_ms):.2f} ms; "
+            f"text fields {[tuple(v.shape) for k, v in raws[0].items() if k.startswith('text')]}; "
+            f"{int(raws[0]['valid'].sum())} raw detections, {len(preds[0])} words; texts {texts[:4]}; "
+            f"outputs finite {finite}")
+        if not finite:
+            failed.append(f"{name} serving: non-finite outputs")
+        ok, perr = _variant_recognizer_check(name, eval_cfg("float32", opts=[*opts, *vopts]), weights, base,
+                                             device)
+        if not ok:
+            failed.append(f"{name} recognizer card vs CPU")
+        out["serving"][name] = dict(call_ms=float(np.median(call_ms)), model_ms=float(np.median(model_ms)),
+                                    card_vs_cpu=perr)
+        del runner
+    log(f"variants serving and recognizer checks: {time.perf_counter() - start:.1f} s")
+
+    # 2. beam search over the f32 encoder states of phase 4's model
+    unit = bm.roi_heads.recognizer_head.aster
+    cpu_unit = GlassRunner(cfg=eval_cfg("float32", opts=opts), state_dict=state_dict,
+                           device="cpu").model.roi_heads.recognizer_head.aster
+    num_steps = bm.arch.max_word_len + 1
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        tok, score = aster_decode_beam(unit, enc, num_steps, BEAM_WIDTH)
+        sync()
+        beam_ms = (time.perf_counter() - t0) * 1e3
+        ctok, cscore = aster_decode_beam(cpu_unit, enc.cpu(), num_steps, BEAM_WIDTH)
+        rescored = beam_rescore(cpu_unit, enc.cpu(), tok.cpu())
+    tok, score = tok.cpu(), score.cpu()
+    same_rows = int((tok == ctok).all(dim=1).sum())
+    d_score = float((score - cscore).abs().max())
+    d_best = float((rescored - cscore).abs().max())
+    ok = d_score <= BEAM_SCORE_ATOL and d_best <= BEAM_SCORE_ATOL
+    log(f"variants beam search ({card}): aster_decode_beam width {BEAM_WIDTH}, {num_steps} steps over "
+        f"{tuple(enc.shape)} encoder states (f32) in {beam_ms:.1f} ms; tokens equal on {same_rows} of "
+        f"{len(tok)} rows; max|card - CPU| best score {d_score:.3g}; the card's beams rescored on the CPU lie "
+        f"{d_best:.3g} from the CPU's best (tol {BEAM_SCORE_ATOL}) -> {'ok' if ok else 'FAILED'}")
+    if not ok:
+        failed.append("beam search card vs CPU")
+    out["beam"] = dict(ms=beam_ms, same_rows=same_rows, rows=len(tok), d_score=d_score, d_best=d_best)
+    del base_runner, bm, feats, norm, det, enc, base
+
+    # 3. CTC and FeatPadV2 training through the CLI at IMS_PER_BATCH 1
+    ds_yaml = write_eval_set(root, 4, hw, seed=4, name="synth_train", train=True)
+    common = ["--config", ICDAR15, "--datasets", ds_yaml, "--device", str(device)]
+    topts = ["TPU.COMPUTE_DTYPE", "bfloat16", "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0",
+             "VIS_PERIOD", "0", "SOLVER.BASE_LR", TRAIN_LR, *train_opts]
+    for name in ("CTC", "FeatPadV2"):
+        if cuda:
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+        _cuda.LAUNCHES.clear()
+        with StepClock(device) as clock, DirectTiles() as direct:
+            port_train.main(common + ["--output", os.path.join(root, name), "--max-iter", str(steps), *topts,
+                                      *MODEL_VARIANTS[name]])
+        got = dict(_cuda.LAUNCHES)
+        launches.update(got)
+        if cuda:
+            _check_launches(got, steps, 1, f"{name} training")
+        peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0
+        ms = np.asarray(clock.ms[2:] or clock.ms)
+        bad = [i for i, m in enumerate(clock.metrics) if not all(np.isfinite(v) for v in m.values())]
+        tiles = direct.counts()
+        log(f"variants {name} training ({card}): {steps} steps at IMS_PER_BATCH 1 (bf16): s/step median "
+            f"{np.median(ms) / 1e3:.3f} (first two excluded; all {[round(t / 1e3, 3) for t in clock.ms]}); peak "
+            f"memory {peak:.0f} MiB; loss_decoder {[round(m['loss_decoder'], 3) for m in clock.metrics]}; total "
+            f"{[round(m['total_loss'], 3) for m in clock.metrics]}; K1b direct-path tiles over the run by pooler "
+            f"{tiles} (K1b's stats read once at the end)")
+        if bad or len(clock.metrics) != steps:
+            failed.append(f"{name} training: non-finite losses at steps {bad}")
+        out["train"][name] = dict(median_s=float(np.median(ms)) / 1e3, peak_mib=peak, direct=tiles)
+    out["launches"] = dict(launches)
+    log(f"phase 10: {time.perf_counter() - start:.1f} s; launches {dict(launches)}")
+    if failed:
+        raise AssertionError(f"phase 10 failed: {failed}")
+    return out
+
+
 def served(runner, image):
     """``run_model``'s raw output for the resized image ``runner(image)``
     serves."""
@@ -2129,7 +2442,7 @@ def kernel_entry(name, source, replaces, launches, rows):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
     ap.add_argument("--out", default="chip_smoke_out", help="directory for the build log and the profile table")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2151,14 +2464,14 @@ def main():
     rng = np.random.RandomState(0)
     rois_np = word_rois(rng, N_ROIS, *BUCKET_HW)
     k1_rows = k2_rows = k1b_rows = None
-    main = train = None
+    main = train = variants = None
     if 1 in phases:
         phase_build(args.out)
     if 2 in phases:
         k1_rows, k1_edge = phase_k1(rng, rois_np)
     if 3 in phases:
         k2_rows, k2_edge, k2_lib_ms = phase_k2(rng, rois_np)
-    if phases & {4, 5, 6, 9}:
+    if phases & {4, 5, 6, 9, 10}:
         images = [synthetic_image(np.random.RandomState(100 + i), 720, 1280) for i in range(N_IMAGES)]
         state_dict = seeded_weights(images[0])
         if 4 in phases:
@@ -2169,13 +2482,20 @@ def main():
             phase_eval(state_dict, args.out)
         if 9 in phases:
             phase_variants(state_dict, images, args.out)
+        if 10 in phases:
+            variants = phase_model_variants(state_dict, images, args.out)
     if 7 in phases:
         k1_train_rows, k1b_rows, k1b_edge = phase_k1b(np.random.RandomState(7))
     if 8 in phases:
         train = phase_train(args.out)
 
     kernels = []
-    launches = (main or {}).get("launches", {})
+    # the main paths' launches: K1 and K2 from phase 4's serving, K1b from
+    # phase 8's training, each with phase 10's (the variants' serving and
+    # training)
+    launches = collections.Counter((main or {}).get("launches", {}))
+    launches["roi_align_rotated_backward"] = (train or {}).get("launches", {}).get("roi_align_rotated_backward", 0)
+    launches.update((variants or {}).get("launches", {}))
     per_image = (main or {}).get("n_images", 1)
     if k1_rows:
         rows = [r for r in k1_rows if r["dtype"] == "bfloat16"]
@@ -2196,11 +2516,12 @@ def main():
         entry = kernel_entry("roi_align_rotated_backward",
                              "glass_tpu_torch/csrc/roi_align_rotated_backward.cu",
                              "glass_tpu/ops/roi_align_rotated.py:375 (autodiff of the packed pooler)",
-                             (train or {}).get("launches", {}).get("roi_align_rotated_backward", 0), rows)
+                             launches.get("roi_align_rotated_backward", 0), rows)
         entry["max_abs_err"] = max(r["err"] for r in k1b_rows + k1b_edge)
         kernels.append(entry)
     log(f"kernel times are per image at the main-path shapes (bfloat16; K1 summed over its "
-        f"three poolers), launches over {per_image} main-path images, on {card}")
+        f"three poolers); launches over phase 4's {per_image} main-path images, phase 8's training "
+        f"steps and phase 10's serving and training, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -7,6 +7,14 @@ Counterpart of ``glass_tpu/models/glass_rcnn.py``:
     raw-image crops -> local CNN] -> channel concat -> GC attention ->
     CNN_V1_1 -> BiLSTM -> greedy ASTER decode  (+ 14x14 mask head)
 
+and every recognizer-side option glass_tpu selects from the config:
+FeatPadV2 (``RECOGNIZER_HEAD.POOLER_PAD``: the pool takes the widened
+boxes, the crops the original ones), the fusion modules
+(``HYBRID_FUSION.{NAME,FUSION_TYPE}``), the recognizer CNNs
+(``RECOGNIZER_HEAD.BACKBONE``), the CTC head (``RECOGNIZER_HEAD.DECODER``:
+per-step softmax, (D, 32, V)) and the local extractors
+(``LOCAL_FEATURE_EXTRACTOR.NAME``).
+
 It keeps glass_tpu's fixed-capacity padded sets with validity masks, so
 the port computes the same function on the same padded bucket: the padded
 border changes features near the edge, anchors whose centres fall beyond
@@ -35,10 +43,11 @@ from .box_head import (
     fast_rcnn_inference_single_image,
 )
 from .fpn import FPN_LEVEL_STRIDES, ResNetFPN
-from .fusion import MultiAspectGCAttention, P2P3Fusion
-from .local_extractor import ResNetFeatureExtractor
+from .fusion import P2P3Fusion, build_fusion
+from .local_extractor import build_local_extractor
 from .mask_head import MaskRCNNConvUpsampleHead, mask_inference_probs
-from .recognizer import RecognizerHead, aster_decode_greedy
+from .pooler_pad import padded_pool
+from .recognizer import RecognizerHead, aster_decode_greedy, ctc_logits
 from . import rpn as rpn_mod
 from ..ops.boxes import apply_deltas
 from ..ops.crop import crop_rois
@@ -133,6 +142,22 @@ class GlassArch:
                 f"{'ctc' if decoder_name == 'CTC' else 'attention'!r}, got "
                 f"LABELS_TYPE={rec.LABELS_TYPE!r}"
             )
+        # ResNetFeatureExtractorV2 emits a crop/4 map, which the recognizer
+        # concatenates with the global pool: glass_tpu's shape contract
+        if cfg.MODEL.RECOGNIZER_ON and (
+            cfg.MODEL.LOCAL_FEATURE_EXTRACTOR.NAME == "ResNetFeatureExtractorV2"
+        ):
+            crop_hw = (rec.POOLER_RESOLUTION_HEIGHT * 16, rec.POOLER_RESOLUTION_WIDTH * 4)
+            v2_out = (crop_hw[0] // 4, crop_hw[1] // 4)
+            pool_hw = (rec.POOLER_RESOLUTION_HEIGHT, rec.POOLER_RESOLUTION_WIDTH)
+            if v2_out != pool_hw:
+                raise ValueError(
+                    "ResNetFeatureExtractorV2 emits a crop/4 feature map "
+                    f"({v2_out[0]}x{v2_out[1]} from the {crop_hw[0]}x{crop_hw[1]} crop) but the "
+                    f"recognizer concatenates it with the {pool_hw[0]}x{pool_hw[1]} global pool; "
+                    "set POOLER_RESOLUTION_HEIGHT/WIDTH so crop/4 matches the pool (e.g. the "
+                    "default extractor instead, which emits crop/16 x crop/4)."
+                )
 
         def _grid(v):
             return tuple(v) if isinstance(v, (tuple, list)) else v
@@ -208,26 +233,11 @@ def _check_ported(arch: GlassArch, train: bool = False) -> None:
             "TPU.REMAT_BACKBONE is not ported to glass_tpu_torch yet "
             "(the training-options slice: backbone rematerialization)"
         )
-    if train and (arch.recognizer_decoder == "CTC" or arch.pooler_pad == "FeatPadV2"):
+    if arch.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
-            "CTC and FeatPadV2 training are not ported to glass_tpu_torch yet; they come "
-            "with their inference variants (the model-family-variants and CTC slices)"
+            f"TPU.COMPUTE_DTYPE={arch.compute_dtype!r} is not ported to glass_tpu_torch yet "
+            "(supported: float32, bfloat16); the float16 slice of ROADMAP.md ports it"
         )
-    unported = {
-        "RECOGNIZER_HEAD.POOLER_PAD": (arch.pooler_pad, ("",)),
-        "RECOGNIZER_HEAD.BACKBONE": (arch.recognizer_backbone, ("CNN_V1_1", "CNN_V1")),
-        "RECOGNIZER_HEAD.DECODER": (arch.recognizer_decoder, ("ASTER", "ASTER_V2")),
-        "LOCAL_FEATURE_EXTRACTOR.NAME": (arch.local_extractor_name, ("ResNetFeatureExtractor",)),
-        "HYBRID_FUSION.NAME": (arch.fusion_name, ("MultiAspectGCAttention",)),
-        "HYBRID_FUSION.FUSION_TYPE": (arch.fusion_type, ("channel_add",)),
-        "TPU.COMPUTE_DTYPE": (arch.compute_dtype, ("float32", "bfloat16")),
-    }
-    for key, (value, ok) in unported.items():
-        if value not in ok:
-            raise NotImplementedError(
-                f"{key}={value!r} is not ported to glass_tpu_torch yet (supported: {ok}); "
-                "the model-family-variants, CTC and float16 slices of ROADMAP.md port the rest"
-            )
 
 
 class GlassRCNN(nn.Module):
@@ -248,9 +258,11 @@ class GlassRCNN(nn.Module):
         )
         if arch.recognizer_on:
             rh.recognizer_feature_fusion = P2P3Fusion(256)
-            rh.hybrid_net = ResNetFeatureExtractor(256)
-            rh.fusion_net = MultiAspectGCAttention(512, 0.5, arch.gc_headers, 256, arch.fusion_type)
-            rh.recognizer_head = RecognizerHead(256, arch.vocab_size)
+            rh.hybrid_net = build_local_extractor(arch.local_extractor_name, 256)
+            rh.fusion_net = build_fusion(arch.fusion_name, arch.fusion_type, 512, 0.5,
+                                         arch.gc_headers, 256)
+            rh.recognizer_head = RecognizerHead(256, arch.vocab_size, arch.recognizer_backbone,
+                                                arch.recognizer_decoder)
         if arch.mask_on:
             rh.mask_head = MaskRCNNConvUpsampleHead(256, 256, arch.mask_num_conv, arch.num_classes)
         self.roi_heads = rh
@@ -358,8 +370,10 @@ def detect_single_image(model: GlassRCNN, feats, pyr: PackedPyramid, content_hw)
 
 
 def recognizer_encode(model: GlassRCNN, feats, norm_image, boxes, raw_image=None):
-    """P2P3 fusion -> 8x32 pool + raw-image crops -> local CNN -> GC
-    attention -> CNN_V1_1 -> BiLSTM: encoder states (D, T, C).
+    """P2P3 fusion -> 8x32 pool + raw-image crops -> local CNN -> fusion
+    -> recognizer CNN -> BiLSTM: encoder states (D, T, C).  Under FeatPadV2
+    the pool takes the widened boxes and its padding columns are zeroed;
+    the crops take ``boxes`` as they are.
 
     raw_image: the (H, W, 3) uint8 image; when given, the crops are pooled
     from it with the normalization folded in.
@@ -369,13 +383,13 @@ def recognizer_encode(model: GlassRCNN, feats, norm_image, boxes, raw_image=None
     # channels-last, so the pooler reads the map in place (no copy)
     fused = rh.recognizer_feature_fusion(feats["p2"], feats["p3"]).contiguous(
         memory_format=torch.channels_last)
-    global_feats = roi_align_rotated_adaptive(
-        nhwc(fused), boxes, arch.recognizer_pool_hw,
+    global_feats = padded_pool(arch, boxes, lambda pool_boxes: roi_align_rotated_adaptive(
+        nhwc(fused), pool_boxes, arch.recognizer_pool_hw,
         spatial_scale=1.0 / FPN_LEVEL_STRIDES["p2"],
         max_sampling_ratio=arch.pool_max_sampling_ratio,
         bulk_sampling_ratio=arch.recognizer_pool_bulk_sampling_ratio,
         large_roi_budget=arch.pool_large_roi_budget,
-    )
+    ))
     if raw_image is not None:
         crops = crop_rois(raw_image, boxes, arch.img_crop_hw, arch.img_crop_sampling_ratio,
                           arch.crop_max_sampling_ratio,
@@ -391,10 +405,14 @@ def recognizer_encode(model: GlassRCNN, feats, norm_image, boxes, raw_image=None
 
 
 def recognize_single_image(model: GlassRCNN, feats, norm_image, boxes, raw_image=None):
-    """-> (D, max_word_len + 1, V) per-step character probabilities."""
-    enc = recognizer_encode(model, feats, norm_image, boxes, raw_image)
-    decoder = model.roi_heads.recognizer_head.decoder.recognizer.decoder
-    return aster_decode_greedy(decoder, enc.to(torch.float32), model.arch.max_word_len + 1)
+    """-> (D, max_word_len + 1, V) per-step character probabilities; CTC:
+    (D, T, V) per-timestep probabilities (T = 32, the encoder's steps),
+    which the codec's CTC decoding collapses."""
+    enc = recognizer_encode(model, feats, norm_image, boxes, raw_image).to(torch.float32)
+    head = model.roi_heads.recognizer_head
+    if head.ctc:
+        return torch.softmax(ctc_logits(head.decoder, enc), dim=-1)
+    return aster_decode_greedy(head.aster, enc, model.arch.max_word_len + 1)
 
 
 def mask_single_image(model: GlassRCNN, pyr: PackedPyramid, boxes, classes):

@@ -1,8 +1,14 @@
-"""Attentional text recognizer: CNN_V1_1 -> BiLSTM x 2 -> ASTER decoder.
+"""Text recognizer: a recognizer CNN -> BiLSTM x 2 -> ASTER or CTC decoder.
 
 Counterpart of ``glass_tpu/models/recognizer.py`` with the module names of
 the reference ``RecognizerRCNNHeadV3`` (``backbone``, ``encoder.
-bilsm_stack.{i}.{rnn,linear}``, ``decoder.recognizer.decoder.*``).
+bilsm_stack.{i}.{rnn,linear}``, ``decoder.recognizer.decoder.*``; the CTC
+head's linear is ``decoder.fc``).  ``RECOGNIZER_BACKBONES`` is glass_tpu's
+table of recognizer CNNs.  glass_tpu builds CNN_V1_1's parameter tree for
+every backbone name (``init_recognizer``), so each CNN here is built with
+those shapes and runs the convolutions it is given: CNN_V1_RECT's ``conv1``
+is the (2, 1) kernel at stride 1 (output height 7), and CNN_V2's ``conv3``
+is one only a checkpoint supplies in glass_tpu.
 
 ``aster_decode_greedy`` reproduces ``AttentionRecognitionHead.sample``
 including its batch-global early exit: steps are zero-filled only after
@@ -21,7 +27,8 @@ from .context import conv_norm
 
 
 class CNN_V1_1(nn.Module):
-    """[2,1]-strided conv halving the height + residual 3x3 conv."""
+    """[2,1]-strided conv halving the height + residual 3x3 conv (also
+    registered as CNN_V1)."""
 
     def __init__(self, channels: int = 256):
         super().__init__()
@@ -32,6 +39,39 @@ class CNN_V1_1(nn.Module):
         """(N, C, 8, 32) -> (N, C, 4, 32)."""
         x1 = self.conv1(x)
         return self.conv2(x1) + x1
+
+
+class CNN_V1_RECT(CNN_V1_1):
+    """conv1 at stride 1 + residual 3x3 conv (reference
+    recognizer_backbone.py:216-266); with glass_tpu's (2, 1) ``conv1``
+    kernel, (N, C, 8, 32) -> (N, C, 7, 32)."""
+
+    def __init__(self, channels: int = 256):
+        super().__init__(channels)
+        self.conv1.stride = (1, 1)
+
+
+class CNN_V2(CNN_V1_1):
+    """[2,1]-strided conv + two residual 3x3 stages (reference
+    recognizer_backbone.py:85-164,267-328; also CNN_V2_1)."""
+
+    def __init__(self, channels: int = 256):
+        super().__init__(channels)
+        self.conv3 = conv_norm(channels, channels, 3, 1, 1, relu=True)
+
+    def forward(self, x):
+        x12 = super().forward(x)
+        return x12 + self.conv3(x12)
+
+
+RECOGNIZER_BACKBONES = {
+    "CNN_V1_1": CNN_V1_1,
+    "CNN_V1": CNN_V1_1,
+    "CNN_V1_RECT": CNN_V1_RECT,
+    "CNN_V2": CNN_V2,
+    "CNN_V2_1": CNN_V2,
+    "Identity": lambda channels: nn.Identity(),
+}
 
 
 class BiLSTMLayer(nn.Module):
@@ -97,16 +137,42 @@ class ASTERDecoder(nn.Module):
         self.recognizer = AttentionRecognitionHead(num_classes, in_channels, in_channels, in_channels)
 
 
-class RecognizerHead(nn.Module):
-    def __init__(self, channels: int = 256, vocab: int = 97):
+class CTCDecoder(nn.Module):
+    """The CTC head: one linear over every encoder step (blank = index 0)."""
+
+    def __init__(self, num_classes: int, in_channels: int):
         super().__init__()
-        self.backbone = CNN_V1_1(channels)
+        self.fc = nn.Linear(in_channels, num_classes)
+
+
+def ctc_logits(decoder: CTCDecoder, x: torch.Tensor) -> torch.Tensor:
+    """Encoder states (N, T, C) -> per-step logits (N, T, V)."""
+    return L.linear(x, decoder.fc.weight, decoder.fc.bias)
+
+
+class RecognizerHead(nn.Module):
+    """``RECOGNIZER_HEAD.BACKBONE`` (a ``RECOGNIZER_BACKBONES`` name) ->
+    BiLSTM encoder -> ``RECOGNIZER_HEAD.DECODER`` ("CTC", else the ASTER
+    decoder, as glass_tpu reads it)."""
+
+    def __init__(self, channels: int = 256, vocab: int = 97, backbone: str = "CNN_V1_1",
+                 decoder: str = "ASTER_V2"):
+        super().__init__()
+        if backbone not in RECOGNIZER_BACKBONES:
+            raise KeyError(f"RECOGNIZER_HEAD.BACKBONE {backbone!r}; known: {sorted(RECOGNIZER_BACKBONES)}")
+        self.backbone = RECOGNIZER_BACKBONES[backbone](channels)
         self.encoder = BiLSTMBlockV2(channels)
-        self.decoder = ASTERDecoder(vocab, channels)
+        self.ctc = decoder == "CTC"
+        self.decoder = CTCDecoder(vocab, channels) if self.ctc else ASTERDecoder(vocab, channels)
 
     def encode(self, fused: torch.Tensor) -> torch.Tensor:
         """fused (N, C, 8, 32) -> encoder states (N, 32, C)."""
         return self.encoder(self.backbone(fused))
+
+    @property
+    def aster(self) -> "DecoderUnit":
+        """The ASTER decoder's step module."""
+        return self.decoder.recognizer.decoder
 
 
 def aster_decode_train(decoder: DecoderUnit, x: torch.Tensor, targets: torch.Tensor,

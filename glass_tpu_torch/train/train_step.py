@@ -41,7 +41,8 @@ from ..models.glass_rcnn import (
     backbone_features,
     preprocess,
 )
-from ..models.recognizer import aster_decode_train
+from ..models.pooler_pad import padded_pool
+from ..models.recognizer import aster_decode_train, ctc_logits
 from ..models.rpn import select_proposals_single_image
 from ..ops.boxes import get_deltas, overwrite_orientations_on_boxes
 from ..ops.crop import crop_rois
@@ -349,10 +350,12 @@ def _recognizer_loss(model, tcfg, feats, norm, ds_boxes, fg_mask, sel_gt_idx, gt
     b = ds_boxes.shape[0]
     w_cap = tcfg.words_per_image
     with torch.no_grad():
-        gt_text_per = _take(gt_text, sel_gt_idx)  # (B, R, T + 2)
+        gt_text_per = _take(gt_text, sel_gt_idx)  # (B, R, T + 2); ctc: (B, R, T)
         word_len = (gt_text_per > 0).sum(dim=-1)
-        # empty/ignored words encode to [GO][s] (token sum 1)
-        word_ok = fg_mask & (gt_text_per.sum(dim=-1) > 1)
+        # empty/ignored words encode to [GO][s] (token sum 1) in attention
+        # mode, all zeros in ctc mode: exclude them either way
+        empty_sum = 0 if model.roi_heads.recognizer_head.ctc else 1
+        word_ok = fg_mask & (gt_text_per.sum(dim=-1) > empty_sum)
         picks = []
         for i in range(b):
             coin = priorities.uniform("word_strategy", i, ())
@@ -364,17 +367,18 @@ def _recognizer_loss(model, tcfg, feats, norm, ds_boxes, fg_mask, sel_gt_idx, gt
         w_idx = torch.stack([p[0] for p in picks])
         w_valid = torch.stack([p[1] for p in picks])
         word_boxes = _take(ds_boxes, w_idx)  # (B, W, 5)
-        word_text = _take(gt_text_per, w_idx)  # (B, W, T + 2)
+        word_text = _take(gt_text_per, w_idx)  # (B, W, T + 2); ctc: (B, W, T)
 
     rh = model.roi_heads
     fused = rh.recognizer_feature_fusion(feats["p2"], feats["p3"]).contiguous(
         memory_format=torch.channels_last)
     pyr = pack_batch_pyramid([fused.permute(0, 2, 3, 1)], [1.0 / FPN_LEVEL_STRIDES["p2"]])
-    global_f = multilevel_pool(
-        pyr, 0, word_boxes.reshape(-1, 5), arch.recognizer_pool_hw, 0,
+    # the pool follows the pooler padding; the raw-image crops keep the word boxes
+    global_f = padded_pool(arch, word_boxes.reshape(-1, 5), lambda pool_boxes: multilevel_pool(
+        pyr, 0, pool_boxes, arch.recognizer_pool_hw, 0,
         arch.pool_max_sampling_ratio, arch.recognizer_pool_bulk_sampling_ratio,
         arch.pool_large_roi_budget, rois_per_image=w_cap,
-    )
+    ))
     with torch.no_grad():
         crops = torch.cat([
             crop_rois(norm[i], word_boxes[i], arch.img_crop_hw, arch.img_crop_sampling_ratio,
@@ -384,13 +388,15 @@ def _recognizer_loss(model, tcfg, feats, norm, ds_boxes, fg_mask, sel_gt_idx, gt
     crops = crops.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     local_f = rh.hybrid_net(crops)
     x = torch.cat([local_f, global_f.permute(0, 3, 1, 2)], dim=1)
-    enc = rh.recognizer_head.encode(rh.fusion_net(x))
-    decoder = rh.recognizer_head.decoder.recognizer.decoder
-    word_logits = aster_decode_train(decoder, enc.to(torch.float32), word_text.reshape(b * w_cap, -1),
-                                     arch.max_word_len + 1)
-    return LS.decoder_cross_entropy(
-        word_logits, word_text.reshape(b * w_cap, -1), w_valid.reshape(-1)
-    ) * tcfg.recognizer_loss_weight
+    head = rh.recognizer_head
+    enc = head.encode(rh.fusion_net(x)).to(torch.float32)
+    targets = word_text.reshape(b * w_cap, -1)
+    if head.ctc:
+        loss = LS.ctc_loss_masked(ctc_logits(head.decoder, enc), targets, w_valid.reshape(-1))
+    else:
+        word_logits = aster_decode_train(head.aster, enc, targets, arch.max_word_len + 1)
+        loss = LS.decoder_cross_entropy(word_logits, targets, w_valid.reshape(-1))
+    return loss * tcfg.recognizer_loss_weight
 
 
 def _mask_losses(model, tcfg, losses, pyr, ds_boxes, fg_mask, sel_gt_idx, gt_polygons, gt_poly_nv,
@@ -470,7 +476,7 @@ def batch_to_device(batch: dict, device, non_blocking: bool = True) -> dict:
 def check_trainable(cfg) -> None:
     """Training options this port does not run yet raise, naming the slice
     that will port them: ``TPU.TRAIN_LOOP_STEPS > 1`` here, the
-    model's (``TPU.REMAT_BACKBONE``, CTC, FeatPadV2) in ``_check_ported``."""
+    model's (``TPU.REMAT_BACKBONE``, float16) in ``_check_ported``."""
     steps = int(getattr(cfg.TPU, "TRAIN_LOOP_STEPS", 1) or 1)
     if steps > 1:
         raise NotImplementedError(

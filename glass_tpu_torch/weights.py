@@ -8,11 +8,19 @@ and returns the port's ``state_dict``, whose names are detectron2's:
 
 * conv weights HWIO -> OIHW; the deconv's (kh, kw, out, in) -> PyTorch's
   (in, out, kh, kw) (the same transpose),
-* the GC-attention bottleneck's linear (out, in) -> 1x1 conv (out, in, 1, 1),
-* linear weights and recurrent weights keep their (gate-packed) layout;
-  LSTM ``fwd``/``bwd`` -> ``*_l0`` / ``*_l0_reverse``, GRU -> ``*_l0``,
-* the recognizer's ``encoder.{i}`` -> ``encoder.bilsm_stack.{i}`` and
-  ``decoder.*`` -> ``decoder.recognizer.decoder.*``.
+* the GC-attention bottleneck's linear (out, in) -> 1x1 conv (out, in, 1, 1)
+  under each fusion type's name (``channel_{add,mul,concat}_conv``;
+  ``cat_conv`` is a conv already),
+* linear weights (SimpleAttention's ``linear``, the CTC head's ``fc``) and
+  recurrent weights keep their (gate-packed) layout; LSTM ``fwd``/``bwd``
+  -> ``*_l0`` / ``*_l0_reverse``, GRU -> ``*_l0``,
+* the recognizer's ``encoder.{i}`` -> ``encoder.bilsm_stack.{i}`` and the
+  ASTER decoder's ``decoder.*`` -> ``decoder.recognizer.decoder.*``; the
+  CTC decoder (a tree with no ``gru``) stays ``decoder.fc``.
+
+The backbone, extractor and library variants (``models/
+local_extractor_variants.py``) take their names from glass_tpu's tree as
+they are.
 """
 
 from __future__ import annotations
@@ -31,12 +39,15 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def _torch_name(path) -> str:
+GC_BOTTLENECKS = ("channel_add_conv", "channel_mul_conv", "channel_concat_conv")
+
+
+def _torch_name(path, aster: bool = True) -> str:
     parts = list(path)
     if parts[:2] == ["roi_heads", "recognizer_head"]:
         if parts[2] == "encoder":
             parts.insert(3, "bilsm_stack")
-        elif parts[2] == "decoder":
+        elif parts[2] == "decoder" and aster:
             parts[3:3] = ["recognizer", "decoder"]
     if "rnn" in parts and parts[-2] in ("fwd", "bwd"):
         suffix = "_reverse" if parts[-2] == "bwd" else ""
@@ -49,11 +60,13 @@ def _torch_name(path) -> str:
 def state_dict_from_jax_params(params: dict) -> Dict[str, torch.Tensor]:
     """glass_tpu parameter tree (numpy leaves) -> port ``state_dict``."""
     out = {}
+    decoder = params.get("roi_heads", {}).get("recognizer_head", {}).get("decoder", {})
+    aster = "fc" not in decoder or "gru" in decoder
     for path, value in _flatten(params):
         v = np.asarray(value, dtype=np.float32)
-        if path[-1] == "weight" and len(path) >= 3 and path[-3] == "channel_add_conv" and v.ndim == 2:
+        if path[-1] == "weight" and len(path) >= 3 and path[-3] in GC_BOTTLENECKS and v.ndim == 2:
             v = v[:, :, None, None]
         elif path[-1] == "weight" and v.ndim == 4:
             v = v.transpose(3, 2, 0, 1)
-        out[_torch_name(path)] = torch.tensor(v)
+        out[_torch_name(path, aster)] = torch.tensor(v)
     return out

@@ -74,18 +74,30 @@ TRAIN_OPTS = [
 ]
 FINETUNE_WORDS = ["MODEL.ROI_RECOGNIZER_HEAD.MAX_BATCH_SIZE", "4"]
 def to_params(state):
-    """A port state dict -> glass_tpu's parameter tree (numpy leaves)."""
-    params = _walk_rename(convert_torch_state_dict({k: v.detach().numpy() for k, v in state.items()}))
+    """A port state dict -> glass_tpu's parameter tree (numpy leaves).
+    glass_tpu looks up a subtree for every recognizer module, also for one
+    without parameters (LocalOnly's ``fusion_net``, the Identity
+    ``backbone``), which the converter, seeing no tensor of it, does not
+    make: an empty one is added here.  The leaves are copies: on the CPU
+    JAX may alias a numpy array's memory, and the port's training forward
+    updates its BN statistics in place while glass_tpu's asynchronously
+    dispatched step may still read them."""
+    params = _walk_rename(convert_torch_state_dict({k: v.detach().numpy().copy() for k, v in state.items()}))
+    rh = params.get("roi_heads", {})
+    if "recognizer_head" in rh:
+        rh.setdefault("fusion_net", {})
+        rh["recognizer_head"].setdefault("backbone", {})
     return jax.tree_util.tree_map(np.asarray, params)
 
 
-def inference_model(config, image, hw, load=None):
+def inference_model(config, image, hw, load=None, opts=()):
     """Seeded random weights, ``load(model)`` overlaying some of them, BN
     statistics calibrated on ``image`` (the padded bucket, content ``hw``),
     as tests/test_torch_slice.py calibrates each model on the image it
     runs; the port's model takes its weights back from glass_tpu's tree
-    (the weight carry-over).  -> (port model, glass_tpu params)."""
-    arch = GlassArch.from_config(get_cfg(config, EVAL_OPTS + TINY_OPTS))
+    (the weight carry-over).  ``opts`` follow the eval and tiny opts.
+    -> (port model, glass_tpu params)."""
+    arch = GlassArch.from_config(get_cfg(config, EVAL_OPTS + TINY_OPTS + list(opts)))
     model = random_init_(GlassRCNN(arch), seed=0).eval()
     if load is not None:
         load(model)
@@ -96,32 +108,35 @@ def inference_model(config, image, hw, load=None):
     return port, params
 
 
-def check_inference_single(config, dtype, load=None):
-    """``glass_inference_single`` at the config's architecture on a 128 x
-    160 image with content 120 x 150, every output field."""
+def check_inference_single(config, dtype, load=None, opts=(), compare=_assert_outputs_match):
+    """``glass_inference_single`` at the config's architecture (plus
+    ``opts``) on a 128 x 160 image with content 120 x 150, every output
+    field, held to glass_tpu's by ``compare(got, want)``."""
+    opts = EVAL_OPTS + TINY_OPTS + list(opts)
     img = synthetic_image(0, 128, 160)
-    port, params = inference_model(config, img, (120, 150), load)
+    port, params = inference_model(config, img, (120, 150), load, opts[len(EVAL_OPTS + TINY_OPTS):])
     img = img.astype(dtype)
-    jarch = dataclasses.replace(JArch.from_config(j_get_cfg(config, EVAL_OPTS + TINY_OPTS)), text_emit="probs")
+    jarch = dataclasses.replace(JArch.from_config(j_get_cfg(config, opts)), text_emit="probs")
     want = jax.device_get(jax.jit(lambda p, i, hw: j_infer(jarch, p, i, hw))(
         params, jnp.asarray(img), jnp.asarray((120, 150), jnp.int32)))
     with torch.inference_mode():
         got = {k: v.numpy() for k, v in glass_inference_single(port, torch.from_numpy(img), (120, 150)).items()}
     assert got["valid"].any()
     assert set(got) - {"text_ids", "text_step_scores"} == set(want) - {"text_probs"}
-    _assert_outputs_match(got, {k: np.asarray(v) for k, v in want.items()})
+    compare(got, {k: np.asarray(v) for k, v in want.items()})
     return port, got
 
 
-def check_runner_call(config, load=None):
+def check_runner_call(config, load=None, opts=()):
     """``__call__`` on a 100 x 140 image: scale rule, bucket, model,
     detector_postprocess, the merge post-processor, text decoding."""
-    opts = EVAL_OPTS + TINY_OPTS
+    extra = list(opts)
+    opts = EVAL_OPTS + TINY_OPTS + extra
     cfg, jcfg = get_cfg(config, opts), j_get_cfg(config, opts)
     image = synthetic_image(1, 100, 140)
     pad = np.zeros((128, 160, 3), np.float32)
     pad[:100, :140] = image
-    port, params = inference_model(config, pad, (100, 140), load)
+    port, params = inference_model(config, pad, (100, 140), load, extra)
     want = JRunner(None, cfg=jcfg, params=params)(image)
     runner = GlassRunner(cfg=cfg, state_dict=port.state_dict(), device="cpu")
     got = runner(image)
@@ -133,6 +148,7 @@ def check_runner_call(config, load=None):
     texts, _, _ = runner.decode_texts(got)
     want_texts, _, _ = j_decode_texts(want, JTextCodec.from_config(jcfg))
     assert texts == want_texts
+    return got, texts
 
 
 def train_step(config, batch, opts=(), model=None, params=None, seed=5):

@@ -22,8 +22,11 @@ import numpy as np
 import pytest
 import torch
 
+from glass_tpu.models.pooler_pad import feat_pad_v2_boxes as j_pad_boxes, feat_pad_v2_mask as j_pad_mask
 from glass_tpu.ops.roi_align_rotated import multilevel_roi_align_rotated_packed as j_multilevel
+from glass_tpu.ops.roi_align_rotated import roi_align_rotated_adaptive as j_adaptive
 
+from glass_tpu_torch.models.pooler_pad import feat_pad_v2_boxes, feat_pad_v2_mask
 from glass_tpu_torch.ops import roi_align_rotated as ra
 
 torch.set_num_threads(2)
@@ -79,8 +82,17 @@ def _oversize(rng, n, h, w):
     return np.concatenate([thin, huge])
 
 
+def _words_featpad(rng, n, h, w):
+    # FeatPadV2's recognizer pool boxes: words, half of them narrower than
+    # the 8x32 aspect and widened to it (footprints up to 4x wider)
+    words = _words(rng, n, h, w)
+    words[: n // 2, 2] = words[: n // 2, 3] * rng.uniform(0.25, 3.0, n // 2)
+    return feat_pad_v2_boxes(torch.from_numpy(words), (8, 32))[0].numpy()
+
+
+# each set's seed is its index in sorted(ROI_SETS): a new set sorts last
 ROI_SETS = {"words": _words, "border": _border, "subpixel": _subpixel, "levels": _levels,
-            "oversize": _oversize}
+            "oversize": _oversize, "words_featpad": _words_featpad}
 
 
 def _pooler_inputs(name, rois):
@@ -249,3 +261,41 @@ def test_bf16_autograd_gradient_is_the_jax_vjp_rounded():
         err = np.abs(t.grad.float().numpy() - wg)
         # f32 reordering (1e-5 of O(1) sums) plus one rounding to bf16
         assert (err <= _bf16_ulp(wg) + 1e-5).all(), float(err.max())
+
+
+def test_featpad_v2_gradient_is_the_jax_vjp_and_ignores_the_padding():
+    """The recognizer's pool on FeatPadV2's widened rois, then the padding
+    mask: the feature gradient (K1b's plain version through the pooler's
+    autograd function) equals glass_tpu's VJP of the same two steps
+    (1e-4 abs, tests/test_torch_roi_align_grad.py's bound), and an upstream
+    gradient on the padding columns alone gives exactly zero."""
+    rng = np.random.RandomState(7)
+    h, w, c = 96, 160, 8
+    feat = rng.randn(h // 4, w // 4, c).astype(np.float32)
+    words = _words(rng, 12, h, w).astype(np.float32)
+    words[:8, 2] = words[:8, 3] * rng.uniform(0.25, 3.0, 8)
+    words = torch.from_numpy(words)
+    boxes, ratio = feat_pad_v2_boxes(words, (8, 32))
+    assert int((ratio > 1).sum()) >= 6
+    ct = rng.randn(12, 8, 32, c).astype(np.float32)
+
+    def pool(f, b):
+        return ra.roi_align_rotated_adaptive(f, b, (8, 32), 0.25, 4, (2, 1), 16)
+
+    def jfn(f):
+        b, r = j_pad_boxes(jnp.asarray(words.numpy()), (8, 32))
+        return j_pad_mask(j_adaptive(f, b, (8, 32), spatial_scale=0.25, max_sampling_ratio=4,
+                                     bulk_sampling_ratio=(2, 1), large_roi_budget=16), r)
+
+    want, vjp = jax.vjp(jfn, jnp.asarray(feat))
+    tf = torch.from_numpy(feat).requires_grad_(True)
+    got = feat_pad_v2_mask(pool(tf, boxes), ratio)
+    got.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-4)
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(vjp(jnp.asarray(ct))[0]), atol=1e-4)
+
+    padding = feat_pad_v2_mask(torch.ones(12, 8, 32, c), ratio) == 0
+    assert bool(padding.any())
+    tf.grad = None
+    feat_pad_v2_mask(pool(tf, boxes), ratio).backward(torch.from_numpy(ct) * padding)
+    assert not tf.grad.any()

@@ -472,10 +472,30 @@ def test_unported_training_options_raise(opts, match):
         check_trainable(cfg)
 
 
-@pytest.mark.parametrize("kw", [dict(recognizer_decoder="CTC"), dict(pooler_pad="FeatPadV2")])
+@pytest.mark.parametrize("kw", [dict(recognizer_decoder="CTC", vocab_size=96), dict(pooler_pad="FeatPadV2")])
 def test_ctc_and_featpad_training_raise(kw):
-    with pytest.raises(NotImplementedError, match="model-family-variants and CTC slices"):
-        _check_ported(GlassArch(**kw), train=True)
+    """CTC and FeatPadV2 training are ported (they raised until then):
+    ``_check_ported(train=True)`` accepts them, and one step of the tiny
+    model on the CPU gives finite losses and gradients.
+    tests/test_torch_variants_train.py holds the step to glass_tpu."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_torch_train_step import ARCH_KW, TCFG_KW, make_batch
+    from test_torch_variants_train import ctc_batch
+
+    from glass_tpu_torch.train.train_step import Priorities, TrainConfig, glass_train_forward
+    from glass_tpu_torch.train.trainer import init_weights_
+
+    arch = GlassArch(**ARCH_KW, **kw)
+    _check_ported(arch, train=True)
+    model = init_weights_(GlassRCNN(arch), 0).train()
+    batch = ctc_batch() if "recognizer_decoder" in kw else make_batch()
+    tb = {k: (v if k == "content_hw" else torch.from_numpy(v)) for k, v in batch.items()}
+    total, losses = glass_train_forward(model, TrainConfig(**TCFG_KW), tb, Priorities(0, 0, "cpu"))
+    total.backward()
+    assert all(np.isfinite(float(v)) for v in losses.values()) and float(losses["loss_decoder"]) > 0
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
 
 
 def test_match_backend_and_sampler_are_validated():
