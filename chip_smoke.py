@@ -108,6 +108,29 @@ Phases:
      ``glass_tpu_torch.train.main``, 5 steps each of the finetune config at
      IMS_PER_BATCH 1 (every loss finite, 3, 3 and 1 K1, K1b and K2 launches
      a step, K1b's direct-path tiles by pooler, s/step, peak memory).
+ 11. distributed on one card (``glass_tpu_torch.parallel``; NCCL across two
+     or more GPUs cannot run on one card and is not checked here):
+     (a) ``python -m glass_tpu_torch.train --distributed`` in-process in a
+     world-size-1 NCCL group, phase 8's config and images, 5 steps at
+     IMS_PER_BATCH 1 with SEED 0, against the plain trainer with the same
+     seed and against the plain trainer run again (the run-to-run floor:
+     K1b and some backward kernels add with atomics): the first step's
+     losses equal bit for bit; every step's losses and the final weights
+     and BN statistics equal bit for bit when the plain trainer repeats
+     itself bit for bit, else within 10x its run-to-run difference; s/step
+     beside phase 8's and 3, 3 and 1 launches a step.  (b) two gloo ranks
+     spawned on the one card at IMS_PER_BATCH 2 (one image a rank): one
+     f32 ``make_parallel_train_step`` (no TF32) held to the same two-rank
+     step on two gloo ranks on the CPU (the card's recorded draws and
+     proposals) at phase 8's card-vs-CPU tolerances, then 3 bf16 steps of
+     the ``Trainer`` in the group, after which the replicas' weights and
+     statistics are bit-identical; per rank s/step, peak memory, the
+     gradient all-reduce's ms a step (gloo through the host) and the K1,
+     K1b and K2 launches (3, 3 and 1 a step).  (c) TPU.SERVE_DATA_PARALLEL
+     with two replicas on the one card (a thread each) at b = 3 (one zero
+     padding row) and b = 4 equals b = 1 serving bit for bit, with 3 K1 and
+     1 K2 launches a row; with the card alone it is phase 4's one-model
+     path, bit for bit.
 
 Prints, on the last two lines, a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``, and copies everything it prints into
@@ -123,7 +146,11 @@ bucket...], eval_hw=(96, 128), n_timed=3, tta_opts=[TEST.AUG.MIN_SIZES
 [64, 96], TEST.AUG.MAX_SIZE 128], train_opts=[...small shapes...],
 steps=2)``, and phase 10 with ``phase_model_variants(state_dict, images,
 out_dir, device="cpu", opts=[...small bucket...], train_opts=[...small
-shapes...], steps=2, hw=(96, 128))``; they take ``device`` for that alone.
+shapes...], steps=2, hw=(96, 128))``, and phase 11 with
+``phase_distributed(state_dict, images, out_dir, device="cpu", n_images=4,
+hw=(96, 128), opts=[...small shapes...], step_opts=[...], steps=2,
+bf16_steps=2, serve_opts=[...small bucket...])``; they take ``device`` for
+that alone.
 """
 
 from __future__ import annotations
@@ -1698,6 +1725,20 @@ def check_f32_step(ds_yaml, device, step_opts):
                 s=time.perf_counter() - t0))
             props.replay = True
     card, cpu = out
+    failed, err = step_errors(card, cpu)
+    log(f"train f32 step card vs CPU ({card_line() if device.type == 'cuda' else 'CPU'}): "
+        f"image {tuple(host['images'].shape[1:3])}, "
+        f"card {card['s']:.2f} s, CPU {cpu['s']:.2f} s; {err['text']} -> {'ok' if not failed else 'FAILED'}; "
+        "CPU losses " + ", ".join(f"{k} {v:.4g}" for k, v in sorted(cpu["losses"].items()) if k.startswith("loss")))
+    if failed:
+        raise AssertionError(f"train f32 step: card and CPU differ: {failed}")
+    return {k: v for k, v in err.items() if k != "text"}
+
+
+def step_errors(card, cpu):
+    """A training step on the card against the same step on the CPU (each
+    a dict of losses, grads and bn): the failures at the STEP_*
+    tolerances, and the errors."""
     failed = []
     loss_err = {k: abs(card["losses"][k] - v) / max(abs(v), 1e-6) for k, v in cpu["losses"].items()}
     worst_loss = max(loss_err, key=loss_err.get)
@@ -1721,16 +1762,12 @@ def check_f32_step(ds_yaml, device, step_opts):
         failed.append(f"BN updates rel {bn_err:.3g}")
     heads = max(e for n, (e, _) in errs.items() if n.startswith(HEADS))
     deep = sorted(errs.items(), key=lambda kv: -kv[1][0])[:3]
-    log(f"train f32 step card vs CPU ({card_line() if device.type == 'cuda' else 'CPU'}): "
-        f"image {tuple(host['images'].shape[1:3])}, "
-        f"card {card['s']:.2f} s, CPU {cpu['s']:.2f} s; worst loss {worst_loss} rel {loss_err[worst_loss]:.3g} "
-        f"(tol {STEP_LOSS_RTOL}); {len(errs)} gradients: heads max rel L2 {heads:.3g} (tol {STEP_HEAD_L2}), "
-        f"largest {[(n, round(e, 5)) for n, (e, _) in deep]} (tol {STEP_GRAD_L2}); BN updates max rel "
-        f"{bn_err:.3g} (tol {STEP_BN_RTOL}) -> {'ok' if not failed else 'FAILED'}; CPU losses "
-        + ", ".join(f"{k} {v:.4g}" for k, v in sorted(cpu["losses"].items()) if k.startswith("loss")))
-    if failed:
-        raise AssertionError(f"train f32 step: card and CPU differ: {failed}")
-    return dict(loss_rel=loss_err[worst_loss], head_l2=heads, worst_l2=deep[0][1][0], bn_rel=bn_err)
+    text = (f"worst loss {worst_loss} rel {loss_err[worst_loss]:.3g} (tol {STEP_LOSS_RTOL}); {len(errs)} "
+            f"gradients: heads max rel L2 {heads:.3g} (tol {STEP_HEAD_L2}), largest "
+            f"{[(n, round(e, 5)) for n, (e, _) in deep]} (tol {STEP_GRAD_L2}); BN updates max rel "
+            f"{bn_err:.3g} (tol {STEP_BN_RTOL})")
+    return failed, dict(loss_rel=loss_err[worst_loss], head_l2=heads, worst_l2=deep[0][1][0], bn_rel=bn_err,
+                        text=text)
 
 
 # ---------------------------------------------------------------------------
@@ -2424,6 +2461,343 @@ def compare_two_stage(paths, state_dict, images, device):
     return dict(det_same=det_same, flips=flips, knife=knife, mask_diff=mask_diff)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: distributed on one card
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 5          # 11(a): IMS_PER_BATCH 1, plain and --distributed in a world-size-1 group
+DIST_BF16_STEPS = 3     # 11(b): two gloo ranks on the one card at IMS_PER_BATCH 2
+DIST_RANKS = 2
+DIST_DEADLINE_S = 300   # each launch of ranks; they are killed past it
+DIST_SERVE_BATCHES = (3, 4)
+
+
+def f32_step_cfg(ds_yaml, step_opts, ims_per_batch=1):
+    """check_f32_step's configuration: the finetune config in f32 at a
+    320-576 px training size, no rotation."""
+    from glass_tpu_torch.config import get_cfg, merge_from_dataset_config
+
+    cfg = get_cfg(ICDAR15)
+    merge_from_dataset_config(cfg, ds_yaml)
+    cfg.merge_from_list(["TPU.COMPUTE_DTYPE", "float32", "INPUT.MIN_SIZE_TRAIN", "(320, 320)",
+                         "INPUT.MAX_SIZE_TRAIN", "576", "INPUT.ROTATION.ENABLED", "False",
+                         "SOLVER.IMS_PER_BATCH", str(ims_per_batch), *step_opts])
+    return cfg
+
+
+def dist_rank(root, host, init_path, ds_yaml, step_opts, trainer_argv, bf16_steps, mode, device):
+    """One rank of phase 11(b) (spawned, in a gloo group): one f32
+    ``make_parallel_train_step`` on its row of the global batch with its
+    recorded draws (``mode`` "card" records the proposals, "cpu" replays
+    the card's), then on the card ``bf16_steps`` steps of the ``Trainer``
+    in the group; writes ``<root>/<mode>_rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from glass_tpu_torch.models import GlassArch, GlassRCNN
+    from glass_tpu_torch.parallel import mesh
+    from glass_tpu_torch.train.optimizer import build_optimizer
+    from glass_tpu_torch.train.train_step import TrainConfig, batch_to_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = mesh.rank()
+    device = torch.device(device)
+    cfg = f32_step_cfg(ds_yaml, step_opts, DIST_RANKS)
+    model = GlassRCNN(GlassArch.from_config(cfg))
+    model.load_state_dict(torch.load(init_path, weights_only=True))
+    model = model.to(device).train()
+    opt = build_optimizer(cfg, model)
+    batch = batch_to_device(mesh.shard_batch(host, r, DIST_RANKS), device)
+    props_path = os.path.join(root, f"proposals{r}.pt")
+    with RecordedProposals() as props:
+        if mode == "cpu":
+            props.saved, props.replay = torch.load(props_path, weights_only=False), True
+        t0 = time.perf_counter()
+        metrics = mesh.make_parallel_train_step(dist.group.WORLD)(
+            model, opt, TrainConfig.from_config(cfg), batch, RecordedDraws(11 + r).for_device(device, False), 0)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+    if mode == "card":
+        torch.save(props.saved, props_path)
+    res = dict(losses={k: float(v) for k, v in metrics.items()}, s=s)
+    if r == 0:
+        torch.save(dict(losses=res["losses"], s=s,
+                        grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                        bn={k: v.detach().cpu() for k, v in model.state_dict().items() if "running_" in k}),
+                   os.path.join(root, f"{mode}_step.pt"))
+    del model, opt, batch
+    if mode == "card":
+        res.update(dist_bf16_steps(trainer_argv, bf16_steps, device))
+    torch.save(res, os.path.join(root, f"{mode}_rank{r}.pt"))
+
+
+def dist_bf16_steps(trainer_argv, steps, device):
+    """``steps`` steps of the ``Trainer`` of ``trainer_argv`` in the group:
+    s/step, peak memory, the gradient all-reduce's ms a step, the kernel
+    launches and whether the replicas agree bit for bit afterwards."""
+    from glass_tpu_torch.ops import _cuda
+    from glass_tpu_torch.parallel import mesh
+    from glass_tpu_torch.train.cli import load_cfg, parse_args
+    from glass_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(load_cfg(parse_args(trainer_argv)), device=device)
+    reduce_ms, inner = [], mesh._flat_all_reduce_mean
+    cuda = device.type == "cuda"
+
+    def timed(tensors, group):  # from the end of this rank's backward, the wait for the other included
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(tensors, group)
+        if cuda:
+            torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    mesh._flat_all_reduce_mean = timed
+    _cuda.LAUNCHES.clear()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        with StepClock(device) as clock:
+            trainer.train(max_iter=steps)
+    finally:
+        mesh._flat_all_reduce_mean = inner
+    n_bytes = 4 * (sum(p.numel() for p in trainer.model.parameters())
+                   + sum(v.numel() for k, v in trainer.model.state_dict().items() if "running_" in k))
+    return dict(ms=clock.ms, metrics=clock.metrics, reduce_ms=reduce_ms, reduce_mib=n_bytes / 2**20,
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20 if cuda else 0.0,
+                launches=dict(_cuda.LAUNCHES),
+                agree=mesh.replicas_agree(list(trainer.model.state_dict().values())))
+
+
+def phase_distributed(state_dict, images, out_dir, device="cuda", n_images=8, hw=(720, 1280), opts=(),
+                      step_opts=(), steps=DIST_STEPS, bf16_steps=DIST_BF16_STEPS, serve_opts=(),
+                      phase8=None):
+    """Phase 11, distributed on one card; see the module docstring.
+    ``opts``, ``step_opts``, ``serve_opts``, ``hw`` and the step counts cut
+    the sizes for a CPU rehearsal (``device="cpu"``: gloo ranks on the
+    CPU, the card-only checks skipped)."""
+    device = torch.device(device)
+    root = os.path.join(out_dir, "distributed")
+    os.makedirs(root, exist_ok=True)
+    try:
+        return _phase_distributed(state_dict, images, root, device, n_images, hw, list(opts), list(step_opts),
+                                  steps, bf16_steps, list(serve_opts), phase8)
+    finally:  # images, checkpoints and gradients are large; the logs stay
+        import glob
+        import shutil
+
+        shutil.rmtree(os.path.join(root, "ds"), ignore_errors=True)
+        for f in glob.glob(os.path.join(root, "**", "*.pt*"), recursive=True):
+            os.remove(f)
+
+
+def _phase_distributed(state_dict, images, root, device, n_images, hw, opts, step_opts, steps, bf16_steps,
+                       serve_opts, phase8):
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "CPU"
+    ds_yaml = write_eval_set(root, n_images, hw, seed=3, name="synth_train", train=True)
+    launches = collections.Counter()
+    a = dist_world1(root, ds_yaml, device, opts, steps, phase8, launches)
+    b = dist_two_ranks(root, ds_yaml, device, opts, step_opts, bf16_steps, launches)
+    c = dist_serving(state_dict, images, device, serve_opts, launches)
+    log(f"phase 11 launches ({card}): {dict(launches)}")
+    return dict(launches=dict(launches), a=a, b=b, c=c)
+
+
+class IdentityProbe:
+    """Wraps the parallel step's flat all-reduce: records, per call,
+    whether it returned every tensor bit for bit (what it must do in a
+    one-rank group)."""
+
+    def __init__(self):
+        from glass_tpu_torch.parallel import mesh
+
+        self.mesh, self.inner, self.same = mesh, mesh._flat_all_reduce_mean, []
+
+    def __enter__(self):
+        def probed(tensors, group):
+            before = [t.clone() for t in tensors]
+            self.inner(tensors, group)
+            self.same.append(all(torch.equal(a, b) for a, b in zip(before, tensors)))
+
+        self.mesh._flat_all_reduce_mean = probed
+        return self
+
+    def __exit__(self, *exc):
+        self.mesh._flat_all_reduce_mean = self.inner
+
+
+def _rel_l2(x, y) -> float:
+    num = sum(float((x[k].double() - v.double()).pow(2).sum()) for k, v in y.items())
+    den = sum(float(v.double().pow(2).sum()) for v in y.values())
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def dist_world1(root, ds_yaml, device, opts, steps, phase8, launches):
+    """11(a): ``python -m glass_tpu_torch.train --distributed`` in a
+    world-size-1 group (NCCL on the card) against the plain trainer with the
+    same seed, and the plain trainer run again (the floor of run-to-run
+    differences: K1b and some backward kernels add with atomics)."""
+    from glass_tpu_torch import train as port_train
+    from glass_tpu_torch.ops import _cuda
+    from glass_tpu_torch.parallel import mesh
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "CPU"
+    # SEED 0: the config's -1 leaves the augmentations unseeded
+    opts = ["TPU.COMPUTE_DTYPE", "bfloat16", "SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0",
+            "VIS_PERIOD", "0", "SOLVER.BASE_LR", TRAIN_LR, "SEED", "0", *opts]
+    runs = {}
+    for name in ("plain", "distributed", "plain_again"):
+        env = {}
+        if name == "distributed":
+            env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+                   "MASTER_PORT": str(mesh.free_port())}
+        os.environ.update(env)
+        _cuda.LAUNCHES.clear()
+        try:
+            with StepClock(device) as clock, IdentityProbe() as probe:
+                trainer = port_train.main(
+                    ["--config", ICDAR15, "--datasets", ds_yaml, "--device", str(device), "--output",
+                     os.path.join(root, name), "--max-iter", str(steps)] + (["--distributed"] if env else [])
+                    + opts)
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        if env:
+            launches.update(_cuda.LAUNCHES)
+            if cuda:
+                _check_launches(dict(_cuda.LAUNCHES), steps, 1, "--distributed in a world-size-1 NCCL group")
+        runs[name] = dict(losses=clock.metrics, ms=clock.ms, identity=probe.same,
+                          state={k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()})
+        del trainer
+
+    plain, dist_, again = runs["plain"], runs["distributed"], runs["plain_again"]
+    same_losses = dist_["losses"] == plain["losses"]
+    same_first = dist_["losses"][0] == plain["losses"][0]
+    same_state = all(torch.equal(v, plain["state"][k]) for k, v in dist_["state"].items())
+    diff, floor = _rel_l2(dist_["state"], plain["state"]), _rel_l2(again["state"], plain["state"])
+    identity = dist_["identity"]
+    median = {k: float(np.median(np.asarray(v["ms"][2:] or v["ms"]))) / 1e3 for k, v in runs.items()}
+    p8 = f"{phase8['median_s']:.3f}" if phase8 else "not run in this call"
+    log(f"dist (a) ({card}): {steps} steps at IMS_PER_BATCH 1 (bf16), --distributed in a world-size-1 "
+        f"{'NCCL' if cuda else 'gloo'} group against the plain trainer: the step's all-reduce returned its "
+        f"input bit for bit at {sum(identity)} of {len(identity)} steps; losses bit-identical at step 0 "
+        f"{same_first}, at every step {same_losses}; final weights and BN statistics bit-identical "
+        f"{same_state}, rel L2 {diff:.3g}; the plain trainer against itself rel L2 {floor:.3g} (bit-identical "
+        f"{floor == 0}); s/step median distributed {median['distributed']:.3f}, plain {median['plain']:.3f} "
+        f"and {median['plain_again']:.3f} (phase 8: {p8}); total loss "
+        f"{[round(m['total_loss'], 4) for m in dist_['losses']]}")
+    if not same_first or len(identity) != steps or not all(identity) or plain["identity"]:
+        raise AssertionError(f"dist (a): step 0 losses equal {same_first}, all-reduce identity {identity}")
+    if floor == 0 and not (same_losses and same_state):
+        raise AssertionError("dist (a): the plain trainer repeats itself bit for bit, the distributed one differs")
+    if diff > 10 * floor:
+        raise AssertionError(f"dist (a): distributed vs plain rel L2 {diff} beyond 10x the run-to-run floor {floor}")
+    return dict(same_losses=same_losses, same_state=same_state, diff=diff, floor=floor, median_s=median)
+
+
+def dist_two_ranks(root, ds_yaml, device, opts, step_opts, bf16_steps, launches):
+    """11(b): two gloo ranks on the one card, then the same f32 step on two
+    gloo ranks on the CPU."""
+    from glass_tpu_torch.data import DatasetManager
+    from glass_tpu_torch.data.loader import build_train_loader
+    from glass_tpu_torch.data.mapper import DatasetMapper
+    from glass_tpu_torch.models import GlassArch, GlassRCNN
+    from glass_tpu_torch.parallel import mesh
+    from glass_tpu_torch.train.trainer import init_weights_
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "CPU"
+    cfg = f32_step_cfg(ds_yaml, step_opts, DIST_RANKS)
+    DatasetManager(cfg).register()
+    records = DatasetManager.load(cfg.DATASETS.TRAIN[0])
+    host = next(iter(build_train_loader(cfg, records, DatasetMapper(cfg, True, np.random.RandomState(0)),
+                                        DIST_RANKS)))
+    init_path = os.path.join(root, "init.pth")
+    torch.save(init_weights_(GlassRCNN(GlassArch.from_config(cfg)), max(int(cfg.SEED), 0)).state_dict(),
+               init_path)
+    trainer_argv = ["--config", ICDAR15, "--datasets", ds_yaml, "--output", os.path.join(root, "b"),
+                    "--device", str(device), "TPU.COMPUTE_DTYPE", "bfloat16", "SOLVER.CHECKPOINT_PERIOD",
+                    "0", "TEST.EVAL_PERIOD", "0", "VIS_PERIOD", "0", "SOLVER.BASE_LR", TRAIN_LR, "SEED", "0", *opts,
+                    "SOLVER.IMS_PER_BATCH", str(DIST_RANKS)]
+    t0 = time.perf_counter()
+    # both card ranks on the one card (cuda:0), each spawned CPU rank on half the cores
+    card_dev = torch.device("cuda", 0) if cuda else device
+    for mode, dev, threads in (("card", card_dev, None), ("cpu", "cpu", max(1, (os.cpu_count() or 2) // 2))):
+        mesh.launch(dist_rank, DIST_RANKS, args=(root, host, init_path, ds_yaml, step_opts, trainer_argv,
+                                                 bf16_steps, mode, str(dev)),
+                    device=dev, backend="gloo", timeout_s=DIST_DEADLINE_S, deadline_s=DIST_DEADLINE_S,
+                    threads=threads)
+        log(f"dist (b): {DIST_RANKS} {mode} ranks done at {time.perf_counter() - t0:.1f} s")
+    ranks = [torch.load(os.path.join(root, f"card_rank{r}.pt"), weights_only=False) for r in range(DIST_RANKS)]
+    cpu_ranks = [torch.load(os.path.join(root, f"cpu_rank{r}.pt"), weights_only=False) for r in range(DIST_RANKS)]
+    failed, err = step_errors(torch.load(os.path.join(root, "card_step.pt"), weights_only=False),
+                              torch.load(os.path.join(root, "cpu_step.pt"), weights_only=False))
+    log(f"dist (b) f32 step, {DIST_RANKS} gloo ranks on {card} against {DIST_RANKS} gloo ranks on the CPU "
+        f"(rank 0's averaged gradients and BN statistics): image {tuple(host['images'].shape[1:3])}, step "
+        f"{[round(x['s'], 2) for x in ranks]} s on the card, {[round(x['s'], 2) for x in cpu_ranks]} s on "
+        f"the CPU; {err['text']} -> {'ok' if not failed else 'FAILED'}")
+    if failed:
+        raise AssertionError(f"dist (b): the card's 2-rank f32 step differs from the CPU's: {failed}")
+    for r, x in enumerate(ranks):
+        ms = np.asarray(x["ms"][1:] or x["ms"])
+        red = np.asarray(x["reduce_ms"][1:] or x["reduce_ms"])
+        log(f"dist (b) rank {r} ({card}): {bf16_steps} bf16 steps of the Trainer at IMS_PER_BATCH "
+            f"{DIST_RANKS} (one image a rank): s/step median {np.median(ms) / 1e3:.3f} (first excluded; all "
+            f"{[round(v / 1e3, 3) for v in x['ms']]}); peak memory {x['peak_mib']:.0f} MiB; gradient "
+            f"all-reduce over gloo through the host (not NCCL), one flat f32 buffer of "
+            f"{x['reduce_mib']:.0f} MiB: median {np.median(red):.1f} ms a step (the wait for the other rank "
+            f"included; all {[round(v, 1) for v in x['reduce_ms']]}); launches {x['launches']}; total loss "
+            f"{[round(m['total_loss'], 4) for m in x['metrics']]}")
+        launches.update(x["launches"])
+        if cuda:
+            _check_launches(x["launches"], bf16_steps, 1, f"rank {r} of {DIST_RANKS} gloo ranks")
+    agree = all(x["agree"] for x in ranks) and ranks[0]["metrics"] == ranks[1]["metrics"]
+    log(f"dist (b): after {bf16_steps} bf16 steps the replicas' weights and statistics are bit-identical: {agree}")
+    if not agree:
+        raise AssertionError("dist (b): the replicas differ after the bf16 steps")
+    return dict(step=err, ranks=[{k: x[k] for k in ("ms", "reduce_ms", "peak_mib", "launches")} for x in ranks])
+
+
+def dist_serving(state_dict, images, device, serve_opts, launches):
+    """11(c): TPU.SERVE_DATA_PARALLEL with two replicas on the one card
+    against b = 1 serving, bit for bit; with the card alone it is phase
+    4's one-model path."""
+    from glass_tpu_torch.inference import GlassRunner
+    from glass_tpu_torch.ops import _cuda
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "CPU"
+    base = GlassRunner(cfg=eval_cfg("bfloat16", opts=serve_opts), state_dict=state_dict, device=device)
+    cfg = eval_cfg("bfloat16", opts=["TPU.SERVE_DATA_PARALLEL", "True", *serve_opts])
+    one = GlassRunner(cfg=cfg, state_dict=state_dict, device=device)
+    two = GlassRunner(cfg=cfg, state_dict=state_dict, device=device, serve_devices=[device, device])
+    if one.replicas != [one.model] or len(two.replicas) != 2:
+        raise AssertionError(f"dist (c): {len(one.replicas)} replicas on the one card, {len(two.replicas)} asked 2")
+    imgs = [im.astype(np.float32) for im in images[:max(DIST_SERVE_BATCHES)]]
+    want = [base.run_on_resized(im) for im in imgs]
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    diffs = {b: same_predictions(two.run_batch_on_resized(imgs[:b]), want[:b]) for b in DIST_SERVE_BATCHES}
+    wall = time.perf_counter() - t0
+    got = dict(_cuda.LAUNCHES)
+    launches.update(got)
+    rows = sum(-(-b // 2) * 2 for b in DIST_SERVE_BATCHES)
+    one_diff = same_predictions(one.run_batch_on_resized(imgs), want)
+    log(f"dist (c) ({card}): SERVE_DATA_PARALLEL, two replicas on the one card (one thread each) at b = "
+        f"{list(DIST_SERVE_BATCHES)} in {wall:.2f} s: fields differing from b = 1 serving {diffs}; one card "
+        f"alone: one replica, fields differing {one_diff}; launches {got} over {rows} rows (padding rows "
+        f"included)")
+    if any(diffs.values()) or one_diff:
+        raise AssertionError(f"dist (c): data-parallel serving differs from b = 1: {diffs}, {one_diff}")
+    if cuda and got != {"roi_align_rotated": 3 * rows, "crop_rois": rows}:
+        raise AssertionError(f"dist (c): launches {got} over {rows} rows")
+    return dict(launches=got)
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     return {
         "name": name,
@@ -2442,7 +2816,7 @@ def kernel_entry(name, source, replaces, launches, rows):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
     ap.add_argument("--out", default="chip_smoke_out", help="directory for the build log and the profile table")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2464,14 +2838,14 @@ def main():
     rng = np.random.RandomState(0)
     rois_np = word_rois(rng, N_ROIS, *BUCKET_HW)
     k1_rows = k2_rows = k1b_rows = None
-    main = train = variants = None
+    main = train = variants = distributed = None
     if 1 in phases:
         phase_build(args.out)
     if 2 in phases:
         k1_rows, k1_edge = phase_k1(rng, rois_np)
     if 3 in phases:
         k2_rows, k2_edge, k2_lib_ms = phase_k2(rng, rois_np)
-    if phases & {4, 5, 6, 9, 10}:
+    if phases & {4, 5, 6, 9, 10, 11}:
         images = [synthetic_image(np.random.RandomState(100 + i), 720, 1280) for i in range(N_IMAGES)]
         state_dict = seeded_weights(images[0])
         if 4 in phases:
@@ -2488,14 +2862,19 @@ def main():
         k1_train_rows, k1b_rows, k1b_edge = phase_k1b(np.random.RandomState(7))
     if 8 in phases:
         train = phase_train(args.out)
+    if 11 in phases:
+        t0 = time.perf_counter()
+        distributed = phase_distributed(state_dict, images, args.out, phase8=train)
+        log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     # the main paths' launches: K1 and K2 from phase 4's serving, K1b from
     # phase 8's training, each with phase 10's (the variants' serving and
-    # training)
+    # training) and phase 11's (distributed training and serving)
     launches = collections.Counter((main or {}).get("launches", {}))
     launches["roi_align_rotated_backward"] = (train or {}).get("launches", {}).get("roi_align_rotated_backward", 0)
     launches.update((variants or {}).get("launches", {}))
+    launches.update((distributed or {}).get("launches", {}))
     per_image = (main or {}).get("n_images", 1)
     if k1_rows:
         rows = [r for r in k1_rows if r["dtype"] == "bfloat16"]
@@ -2521,7 +2900,7 @@ def main():
         kernels.append(entry)
     log(f"kernel times are per image at the main-path shapes (bfloat16; K1 summed over its "
         f"three poolers); launches over phase 4's {per_image} main-path images, phase 8's training "
-        f"steps and phase 10's serving and training, on {card}")
+        f"steps, phase 10's serving and training and phase 11's distributed training and serving, on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

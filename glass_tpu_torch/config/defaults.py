@@ -507,7 +507,9 @@ def get_default_config() -> CN:
     _C.TPU.TRAIN_LOOP_STEPS = 1
     # Restrict the training data mesh to the first N local devices
     # (0 = all). IMS_PER_BATCH must divide by the mesh size; this knob
-    # lets small-batch runs train on a machine with more devices.
+    # lets small-batch runs train on a machine with more devices.  In the
+    # port: the processes `python -m glass_tpu_torch.train` spawns, one per
+    # GPU (0 = every visible GPU; on --device cpu, N gloo ranks, 0 = one).
     _C.TPU.TRAIN_DEVICES = 0
     # Box/mask pooler kernel backend: "xla" (packed-pyramid gather,
     # default) or "pallas" (DMA-tile kernel — bit-exact alternative,
@@ -516,7 +518,8 @@ def get_default_config() -> CN:
     # Single-process SPMD serving: shard eval batches over all local
     # devices (inference/runner.py::dispatch_batch). One program drives
     # the serving pod — the TPU answer to the reference's
-    # one-process-per-GPU launch().
+    # one-process-per-GPU launch().  In the port: one replica per visible
+    # GPU in one process, the batch rows split over them.
     _C.TPU.SERVE_DATA_PARALLEL = False
     # Batched-serving realisation: "map" runs the hand-tuned single-image
     # program sequentially per batch row inside one jit (lax.map) — each
@@ -580,6 +583,8 @@ def get_default_config() -> CN:
     # glass_runner.py:133-134; detectron2's eval mapper resizes uint8).
     _C.TPU.EVAL_UINT8_TRANSFER = True
     _C.TPU.PARAM_DTYPE = "float32"
+    # Read nowhere, in glass_tpu as in the port: training always syncs BN
+    # over the data group (parallel/mesh.py).
     _C.TPU.MESH_AXES = ["data"]
     _C.TPU.SYNC_BN = True             # psum batch stats across the data axis
     # Rematerialize the backbone in the training backward pass (trade ~1.3x

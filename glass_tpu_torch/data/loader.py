@@ -3,6 +3,8 @@
 A copy of glass_tpu's ``data/loader.py`` (host code, no JAX): the port
 trains on the same padded batches, so the padded border and the padded gt
 rows give the same batch statistics and the same matching as glass_tpu.
+``pad_batch_images`` is the port's: it pads a rank's batch to the size
+the ranks agree on (``parallel.mesh.agree_batch_shape``).
 
 The reference uses torch DataLoaders with list-of-dicts collation
 (``glass/data/build.py``); on TPU every array entering jit must have a
@@ -115,6 +117,19 @@ class PaddedBatchBuilder:
             "gt_polygons": gt_polygons,
             "gt_poly_nv": gt_poly_nv,
         }
+
+
+def pad_batch_images(batch: dict, hw) -> dict:
+    """The batch with its images zero-padded at the bottom and right to
+    ``hw``: what the builder gives when the batch's largest image needs
+    ``hw`` (data parallelism: every rank's shard of one global batch
+    shares its padded size)."""
+    h, w = batch["images"].shape[1:3]
+    if (h, w) == tuple(hw):
+        return batch
+    images = np.zeros((len(batch["images"]), hw[0], hw[1], 3), batch["images"].dtype)
+    images[:, :h, :w] = batch["images"]
+    return {**batch, "images": images}
 
 
 def build_train_loader(

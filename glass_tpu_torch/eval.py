@@ -15,8 +15,14 @@ precision/recall/hmean per dataset under the RRC protocol, a
 
 ``--tta`` (or ``TEST.AUG.ENABLED``) evaluates image by image through
 ``inference.tta.GlassRunnerWithTTA.eval_call``, whatever ``--batch-size``
-is, as the reference does.  Not ported yet, and refused: more than one
-process (the distributed slice).
+is, as the reference does.
+
+Under ``torchrun`` (the environment names a group of more than one
+process) each rank evaluates ``records[rank::world]`` on ``cuda:LOCAL_RANK``
+(gloo on ``--device cpu``), the evaluator gathers the shards, and rank 0
+writes ``results.json`` and the det zip:
+
+    torchrun --nproc_per_node 8 -m glass_tpu_torch.eval --config ... --datasets ... --model ...
 """
 
 from __future__ import annotations
@@ -111,17 +117,28 @@ def main(argv=None) -> dict:
     """Run the evaluation; returns the per-dataset results it also writes
     to ``<output>/results.json``."""
     args = parse_args(argv)
-    cfg = setup(args)
+    from .parallel import mesh
 
+    device = args.device
+    joined = not mesh.is_distributed() and int(os.environ.get("WORLD_SIZE", "1") or 1) > 1
+    if joined:
+        device = mesh.init_from_env(args.device)
+    try:
+        return _evaluate(args, device)
+    finally:
+        if joined:
+            mesh.destroy()
+
+
+def _evaluate(args, device) -> dict:
     from .data import DatasetManager
     from .evaluation import Lexicon, TextEvaluator
-    from .evaluation.evaluator import check_single_process
     from .inference import GlassRunner
+    from .parallel import mesh
 
-    # The reference shards the test set over processes; the port evaluates
-    # in one process until its distributed slice.
-    check_single_process("glass_tpu_torch.eval")
-    runner = GlassRunner(model_path=args.model, cfg=cfg, device=args.device)
+    cfg = setup(args)
+    rank, world = mesh.rank(), mesh.world_size()
+    runner = GlassRunner(model_path=args.model, cfg=cfg, device=device)
     if args.params:
         from .utils.common import format_parameter_census, parameter_census
 
@@ -142,6 +159,9 @@ def main(argv=None) -> dict:
         records = DatasetManager.load(dataset_name)
         if args.max_images:
             records = records[: args.max_images]
+        # more than one process: a strided shard each; TextEvaluator.evaluate()
+        # gathers them, so every rank reports the metrics of the whole set
+        records = records[rank::world]
         gt_zip = args.gt_zip
         if not gt_zip:
             # Configured gt archives (DATASETS.EVAL_GT_ZIPS.*) by name match.
@@ -197,10 +217,11 @@ def main(argv=None) -> dict:
         all_results[dataset_name] = results
         logger.info("%s results: %s", dataset_name, json.dumps(results, indent=2))
 
-    os.makedirs(args.output, exist_ok=True)
-    with open(os.path.join(args.output, "results.json"), "w") as f:
-        json.dump(all_results, f, indent=2)
-    print(json.dumps(all_results, indent=2))
+    if rank == 0:
+        os.makedirs(args.output, exist_ok=True)
+        with open(os.path.join(args.output, "results.json"), "w") as f:
+            json.dump(all_results, f, indent=2)
+        print(json.dumps(all_results, indent=2))
     return all_results
 
 

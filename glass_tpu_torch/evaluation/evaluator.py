@@ -15,8 +15,8 @@ Prediction conversion mirrors ``instances_to_coco_json``: with masks, the
 largest mask contour becomes the polygon; otherwise the rotated box's 4
 vertices.  Optional lexicon correction matches ``lexicon_utils``.
 
-A copy of ``glass_tpu/evaluation/evaluator.py``; the multi-host gather
-waits for the port's distributed slice (``check_single_process``).
+A copy of ``glass_tpu/evaluation/evaluator.py``; the gather across
+processes runs over ``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -38,23 +38,6 @@ from .text_eval import EvalInstance, evaluate_dataset
 from .lexicon import Lexicon, LexiconSet, match_transcript
 
 logger = logging.getLogger(__name__)
-
-
-def world_size() -> int:
-    """Processes of the ``torch.distributed`` group, 1 when there is none."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
-
-
-def check_single_process(what: str) -> None:
-    if world_size() > 1:
-        raise NotImplementedError(
-            f"{what}: multi-process evaluation is not ported to glass_tpu_torch "
-            "yet (the distributed slice); run one process"
-        )
 
 
 def mask_to_polygon(mask: np.ndarray) -> Optional[np.ndarray]:
@@ -281,14 +264,28 @@ class TextEvaluator:
             self._gts[image_key] = gts
 
     def gather_across_processes(self):
-        """Merge per-process results: a no-op in a single process.
+        """Merge per-process results in a multi-process evaluation.
 
         The reference gathers predictions to rank 0 over NCCL/gloo
-        (``text_evaluator.py:246-252``).  A multi-process evaluation
-        (``torch.distributed`` initialized with a world size above 1) is the
-        distributed slice of the port and raises here.
+        (``text_evaluator.py:246-252``); here every process allgathers the
+        (dets, gts) dicts (``all_gather_object``), so each computes the
+        metrics of the whole set (callers shard the records with
+        ``records[rank::world]``).  The dicts merge in rank order.  A no-op
+        in a single process.
         """
-        check_single_process("TextEvaluator.gather_across_processes")
+        import torch.distributed as dist
+
+        from ..parallel import mesh
+
+        if mesh.world_size() == 1:
+            return
+        shards = [None] * mesh.world_size()
+        dist.all_gather_object(shards, (self._dets, self._gts))
+        dets, gts = {}, {}
+        for d, g in shards:
+            dets.update(d)
+            gts.update(g)
+        self._dets, self._gts = dets, gts
 
     def evaluate(self) -> Dict[str, Dict[str, float]]:
         self.gather_across_processes()
@@ -307,7 +304,9 @@ class TextEvaluator:
             confidences=bool(getattr(self.cfg.TEST, "CONFIDENCES", False)),
         )
         logger.info("%s: %s", self.dataset_name, results)
-        if self.output_dir:
+        from ..parallel import mesh
+
+        if self.output_dir and mesh.rank() == 0:  # every rank holds the same merged set
             self._write_outputs(per_sample)
         return results
 

@@ -24,10 +24,19 @@ program reads a few values back on the host (the poolers' grid extents, the
 NMS fixpoints), so the thread that dispatches it waits on the device; with
 ``TPU.ASYNC_FETCH`` a worker thread therefore runs the model and the fetch
 of the next batch while the calling thread post-processes the last one.
+
+``TPU.SERVE_DATA_PARALLEL`` splits the rows of a batch over the serving
+devices (every visible GPU, or ``serve_devices``): one replica of the model
+per device, the batch padded with zero images to a multiple of the device
+count, each device mapping the single-image program over its contiguous
+rows from a thread of its own, the outputs gathered in row order.  With
+one device it is a no-op, as in glass_tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import logging
 import math
 from collections import deque
@@ -196,9 +205,12 @@ class GlassRunner:
         cfg: Optional[CfgNode] = None,
         state_dict: Optional[dict] = None,
         device=None,
+        serve_devices: Optional[List] = None,
     ):
         """Runs on ``cuda`` unless ``device="cpu"``.  Weights come from
-        ``state_dict``, else ``model_path``, else a random init from seed 0."""
+        ``state_dict``, else ``model_path``, else a random init from seed 0.
+        ``serve_devices`` are the devices of ``TPU.SERVE_DATA_PARALLEL``
+        (default: every visible GPU)."""
         self.device = resolve_device(device)
         self.cfg = cfg if cfg is not None else get_cfg(config_path, opts)
         self.post_process_flag = post_process
@@ -213,6 +225,19 @@ class GlassRunner:
             logger.warning("No checkpoint given; random-initializing weights (seed 0)")
             random_init_(model, 0)
         self.model = model.eval().to(self.device)
+        self.replicas = [self.model]
+        if getattr(self.cfg.TPU, "SERVE_DATA_PARALLEL", False):
+            if serve_devices:
+                devices = [torch.device(d) for d in serve_devices]
+            elif self.device.type == "cuda":
+                devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            else:
+                devices = [self.device]
+            home = next(self.model.parameters()).device
+            self.replicas = [self.model if i == 0 and d == home else copy.deepcopy(self.model).to(d)
+                             for i, d in enumerate(devices)]
+            if len(self.replicas) > 1:
+                logger.info("data-parallel serving over %d devices", len(self.replicas))
 
         self.min_target_size = self.cfg.INPUT.MIN_SIZE_TEST
         self.max_target_size = self.cfg.INPUT.MAX_SIZE_TEST
@@ -342,20 +367,40 @@ class GlassRunner:
                 f"TPU.SERVE_BATCH_MODE={mode!r} is not ported to glass_tpu_torch yet "
                 "(the vmap-serving slice); use 'map'"
             )
-        if (getattr(self.cfg.TPU, "SERVE_DATA_PARALLEL", False) and self.device.type == "cuda"
-                and torch.cuda.device_count() > 1):
-            raise NotImplementedError(
-                "TPU.SERVE_DATA_PARALLEL over more than one GPU is not ported to "
-                "glass_tpu_torch yet (the distributed slice)"
-            )
-        model = self.model
-
-        def batched(imgs: torch.Tensor, hws: np.ndarray) -> dict:
+        def mapped(model, imgs: torch.Tensor, hws: np.ndarray) -> dict:
             outs = [glass_inference_single(model, imgs[i], (int(hws[i, 0]), int(hws[i, 1])))
                     for i in range(imgs.shape[0])]
             return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
-        return batched
+        if len(self.replicas) == 1:
+            return lambda imgs, hws: mapped(self.model, imgs, hws)
+        return lambda imgs, hws: self._data_parallel(mapped, imgs, hws)
+
+    def _data_parallel(self, mapped, imgs: torch.Tensor, hws: np.ndarray) -> dict:
+        """glass_tpu's shard_map of the per-row map: the batch padded to a
+        multiple of the replica count with zero images of 1x1 content,
+        replica d mapping rows [d*k, (d+1)*k) on its device from a thread of
+        its own (inference mode is per thread), the outputs gathered in row
+        order on this runner's device and cut back to the batch."""
+        n, b = len(self.replicas), imgs.shape[0]
+        k = -(-b // n)
+        pad = n * k - b
+        if pad:
+            imgs = torch.cat([imgs, imgs.new_zeros((pad,) + tuple(imgs.shape[1:]))])
+            hws = np.concatenate([hws, np.ones((pad, 2), hws.dtype)])
+
+        def shard(d):
+            model = self.replicas[d]
+            dev = next(model.parameters()).device
+            # the kernels launch on the thread's current device
+            guard = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+            with guard, torch.inference_mode():
+                out = mapped(model, imgs[d * k:(d + 1) * k].to(dev), hws[d * k:(d + 1) * k])
+                return {key: v.to(self.device) for key, v in out.items()}
+
+        with ThreadPoolExecutor(n) as pool:
+            outs = list(pool.map(shard, range(n)))
+        return {key: torch.cat([o[key] for o in outs])[:b] for key in outs[0]}
 
     def run_batch_on_resized(self, images: List[np.ndarray]) -> List[Instances]:
         """Batched inference over same-bucket resized images: raw instances

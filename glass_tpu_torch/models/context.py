@@ -18,11 +18,16 @@ class BatchNorm2d(nn.Module):
     """Batch norm with PyTorch/d2 parameter names: running statistics in
     eval mode; in training mode (``module.train()``) batch statistics, with
     the running statistics updated in place (``L.batch_norm_train``, the
-    arithmetic of glass_tpu's ``batch_norm(train=True)``)."""
+    arithmetic of glass_tpu's ``batch_norm(train=True)``).
+
+    ``process_group`` (glass_tpu's ``Ctx.axis_name``) syncs the training
+    statistics over that group's ranks; None, the default, keeps them per
+    process (``parallel.mesh.sync_batch_norm`` sets it for a step)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.process_group = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -31,7 +36,7 @@ class BatchNorm2d(nn.Module):
     def forward(self, x):
         if self.training:
             return L.batch_norm_train(x, self.weight, self.bias, self.running_mean,
-                                      self.running_var, self.eps)
+                                      self.running_var, self.eps, group=self.process_group)
         return L.batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var, self.eps)
 
 

@@ -60,15 +60,25 @@ def batch_norm(x, weight, bias, running_mean, running_var, eps: float = 1e-5):
 
 
 def batch_norm_train(x, weight, bias, running_mean, running_var, eps: float = 1e-5,
-                     momentum: float = 0.1):
+                     momentum: float = 0.1, group=None):
     """Training-mode BatchNorm over dim 1 with glass_tpu's arithmetic: mean
     and mean of squares in f32 over the whole batch (padding included), the
     biased variance to normalize, ``(x - mean) * inv + b`` in the activation
     dtype, and the running statistics EMA-updated in place with the
-    *unbiased* variance."""
+    *unbiased* variance.
+
+    With a process ``group`` (SyncBN, glass_tpu's ``axis_name``), the mean
+    and the mean of squares are each averaged over the ranks, every rank
+    weighing equally, and the gradient flows back through the average.  As
+    in glass_tpu, the unbiased correction uses this rank's element count,
+    not the group's."""
     dims = (0,) + tuple(range(2, x.dim()))
     mean = torch.mean(x, dim=dims, dtype=torch.float32)
     mean_sq = torch.mean(torch.square(x.to(torch.float32)), dim=dims)
+    if group is not None:
+        from ..parallel.mesh import all_reduce_mean
+
+        mean, mean_sq = all_reduce_mean(torch.cat([mean, mean_sq]), group).chunk(2)
     var = mean_sq - mean ** 2
     inv = weight / torch.sqrt(var + eps)
     shape = (1, -1) + (1,) * (x.dim() - 2)

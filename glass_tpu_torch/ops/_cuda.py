@@ -7,14 +7,21 @@ loaded with ``ctypes``.  The build happens at first use, into
 hash of the sources and flags so an edited kernel is rebuilt.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
 
+Processes that share the build directory (data-parallel ranks) build one
+at a time under a file lock; a library another process built meanwhile is
+taken as it is.
+
 ``LAUNCHES`` counts kernel launches by kernel name; each wrapper adds one
-where it launches its kernel and nowhere else.
+(``count``, under a lock: serving replicas launch from threads of their
+own) where it launches its kernel and nowhere else.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -39,6 +46,13 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _libs: dict = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def count(name: str) -> None:
+    """One launch of kernel ``name``."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def build_dir() -> str:
@@ -78,9 +92,27 @@ def _start(name: str):
     return proc, tmp, out
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on the build directory, held across processes
+    (released by the kernel if the holder dies)."""
+    os.makedirs(build_dir(), exist_ok=True)
+    with open(os.path.join(build_dir(), ".lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names=KERNEL_SOURCES) -> dict:
     """Compile every named source in parallel.  Returns {name: (seconds,
     compiler log)}; raises if any build fails."""
+    with _build_lock():
+        return _build_all(names)
+
+
+def _build_all(names) -> dict:
     t0 = time.perf_counter()
     started = {n: _start(n) for n in names}
     logs, failed = {}, []

@@ -103,7 +103,7 @@ def crop_rois(image, rois, out_hw=(128, 128), sampling_ratio=1,
         mean_ptr, std_ptr, out.data_ptr(), _cuda.current_stream(dev),
     )
     _cuda.check_status(KERNEL, status)
-    _cuda.LAUNCHES[KERNEL] += 1
+    _cuda.count(KERNEL)
     return out
 
 

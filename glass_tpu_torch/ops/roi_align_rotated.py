@@ -328,7 +328,7 @@ def roi_align_rotated_packed_backward(grad_out, meta, rois, levels, grid, n_rows
         info.data_ptr(), _cuda.current_stream(dev),
     )
     _cuda.check_status(BACKWARD_KERNEL, status)
-    _cuda.LAUNCHES[BACKWARD_KERNEL] += 1
+    _cuda.count(BACKWARD_KERNEL)
     return (out, stats) if return_stats else out
 
 
@@ -373,7 +373,7 @@ def _pool_forward(flat, meta, rois, levels, grid, output_size):
         _cuda.current_stream(flat.device),
     )
     _cuda.check_status(KERNEL, status)
-    _cuda.LAUNCHES[KERNEL] += 1
+    _cuda.count(KERNEL)
     return out
 
 

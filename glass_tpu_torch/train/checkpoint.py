@@ -2,8 +2,9 @@
 
 ``save_checkpoint`` writes ``model_{iter:07d}.pth`` holding ``{"model":
 state_dict, "optimizer": ..., "iteration": iter}`` and a ``last_checkpoint``
-file naming it, as d2's ``DetectionCheckpointer``; glass_tpu's
-``load_torch_checkpoint`` reads the same file (its names are d2's).
+file naming it, as d2's ``DetectionCheckpointer`` (rank 0 alone in a
+process group); glass_tpu's ``load_torch_checkpoint`` reads the same file
+(its names are d2's).
 
 ``load_torch_checkpoint`` reads every file glass_tpu's reader of that name
 reads, into a d2-named ``{name: tensor}`` dict: a ``.pth``/``.pt``, a d2
@@ -32,9 +33,20 @@ logger = logging.getLogger(__name__)
 LAST = "last_checkpoint"
 
 
-def save_checkpoint(out_dir: str, iteration: int, model: torch.nn.Module, optimizer=None) -> str:
+def save_checkpoint(out_dir: str, iteration: int, model: torch.nn.Module, optimizer=None,
+                    group=None) -> str:
+    """Write ``model_{iteration:07d}.pth`` and ``last_checkpoint``.  With a
+    process ``group``, rank 0 writes them (the replicas are equal), then
+    every rank waits at a barrier, so every rank resumes from that file."""
     name = f"model_{iteration:07d}.pth"
     path = os.path.join(out_dir, name)
+    if group is not None:
+        import torch.distributed as dist
+
+        if dist.get_rank(group) == 0:
+            save_checkpoint(out_dir, iteration, model, optimizer)
+        dist.barrier(group=group)
+        return path
     payload = {
         "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
         "iteration": int(iteration),

@@ -3,7 +3,8 @@
 Counterpart of ``glass_tpu/train/train_step.py`` (``TrainConfig``,
 ``rpn_losses``, ``glass_train_forward``) and of the step of
 ``glass_tpu/parallel/mesh.py`` on one device (loss, backward, optimizer
-step, batch-norm updates):
+step, batch-norm updates; over ranks, ``parallel/mesh.py``'s
+``make_parallel_train_step``):
 
 * anchor labelling with the exact matcher (``matcher.py``),
 * balanced subsampling as "uniform priorities, then top-k",
@@ -67,12 +68,17 @@ class Priorities:
     ``rpn_pos``/``rpn_neg`` (A,) anchor priorities, ``roi_pos``/``roi_neg``
     (P + G,) RoI priorities, ``word_strategy`` () the long_first coin,
     ``word_pick`` (R,) word priorities and ``mask`` (R,) mask-RoI
-    priorities."""
+    priorities.
 
-    def __init__(self, seed: int, iteration: int, device):
+    ``rank`` folds a data-parallel rank into the seed, as glass_tpu folds
+    ``axis_index("data")`` into each shard's key; rank 0 draws what one
+    process draws."""
+
+    def __init__(self, seed: int, iteration: int, device, rank: int = 0):
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed((int(seed) * 1_000_003 + int(iteration)) % (2 ** 63))
+        self.generator.manual_seed(
+            (int(seed) * 1_000_003 + int(iteration) + int(rank) * 0x9E3779B97F4A7C15) % (2 ** 63))
 
     def uniform(self, site: str, image: int, shape) -> torch.Tensor:
         return torch.rand(shape, generator=self.generator, device=self.device)
@@ -442,10 +448,17 @@ def _mask_losses(model, tcfg, losses, pyr, ds_boxes, fg_mask, sel_gt_idx, gt_pol
 
 
 def train_step(model: GlassRCNN, optimizer, tcfg: TrainConfig, batch: dict,
-               priorities: Priorities, iteration: int) -> Dict[str, torch.Tensor]:
+               priorities: Priorities, iteration: int, group=None) -> Dict[str, torch.Tensor]:
     """One optimizer step on one device: forward (BN statistics updated in
     place), backward, then the SGD step at ``iteration``'s learning rate.
-    Returns the detached metrics, ``total_loss`` included."""
+    Returns the detached metrics, ``total_loss`` included.  With a process
+    ``group`` the step is ``parallel.mesh.make_parallel_train_step``'s:
+    SyncBN, and gradients, BN statistics and metrics averaged over the
+    ranks before the SGD step."""
+    if group is not None:
+        from ..parallel.mesh import make_parallel_train_step
+
+        return make_parallel_train_step(group)(model, optimizer, tcfg, batch, priorities, iteration)
     model.train()
     optimizer.zero_grad()
     total, losses = glass_train_forward(model, tcfg, batch, priorities)

@@ -1,14 +1,22 @@
 """Training orchestration: the reference ``Trainer``/``DefaultTrainer`` loop.
 
-Counterpart of ``glass_tpu/train/trainer.py`` on one device: SGD +
-WarmupMultiStepLR, scalar logging every 20 iterations (``metrics.json``),
-periodic checkpoints in detectron2's layout and periodic evaluation through
-the port's own ``GlassRunner``, a checkpoint on SIGTERM/SIGINT, the
-``VIS_PERIOD`` minibatch dump and precise BN before an evaluation.
+Counterpart of ``glass_tpu/train/trainer.py``: SGD + WarmupMultiStepLR,
+scalar logging every 20 iterations (``metrics.json``), periodic checkpoints
+in detectron2's layout and periodic evaluation through the port's own
+``GlassRunner``, a checkpoint on SIGTERM/SIGINT, the ``VIS_PERIOD``
+minibatch dump and precise BN before an evaluation.
+
+Data parallelism (``parallel/mesh.py``): in a ``torch.distributed`` group
+of N processes, one per device, each rank loads ``IMS_PER_BATCH / N``
+images (``records[rank::N]``, augmentations seeded with ``SEED + rank``),
+the ranks pad to one global image size, and the step syncs BN and averages
+the gradients.  Rank 0's initial state is broadcast; rank 0 alone writes
+``metrics.json`` and the checkpoints; every rank evaluates its strided shard
+of the test set and the evaluator gathers them.  PreciseBN averages each
+rank's own batches, as glass_tpu's does per process.
 
 Not ported yet, and refused: ``TPU.TRAIN_LOOP_STEPS > 1``,
-``TPU.REMAT_BACKBONE`` (the training-options slice), more than one process
-(the distributed slice).
+``TPU.REMAT_BACKBONE`` (the training-options slice).
 """
 
 from __future__ import annotations
@@ -21,15 +29,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import CfgNode
 from ..data import DatasetManager
 from ..data.loader import build_train_loader
 from ..data.mapper import DatasetMapper
 from ..device import resolve_device
-from ..evaluation.evaluator import world_size
 from ..models import GlassArch, GlassRCNN
 from ..models.context import BatchNorm2d
+from ..parallel import mesh
 from ..utils.events import EventStorage
 from .checkpoint import last_checkpoint, load_weights_, save_checkpoint
 from .optimizer import build_optimizer
@@ -73,31 +82,39 @@ def init_weights_(model: GlassRCNN, seed: int = 0) -> GlassRCNN:
     return model
 
 
-def check_single_process() -> None:
-    """Training runs in one process until the distributed slice."""
-    if world_size() > 1 or int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
-        raise NotImplementedError(
-            "glass_tpu_torch.train: multi-process training is not ported yet "
-            "(the distributed slice); run one process"
-        )
-
-
 class Trainer:
     def __init__(self, cfg: CfgNode, device=None):
+        """Trains on ``device`` (``cuda`` unless ``cpu`` is asked for), in
+        the ``torch.distributed`` group when one is initialized (the data
+        group: one rank per device), else in this one process."""
         check_trainable(cfg)
-        check_single_process()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.group = dist.group.WORLD if mesh.is_distributed() else None
+        self.rank, self.world = mesh.rank(), mesh.world_size()
+        if cfg.SOLVER.IMS_PER_BATCH % self.world != 0:
+            raise ValueError(
+                f"SOLVER.IMS_PER_BATCH={cfg.SOLVER.IMS_PER_BATCH} must be divisible by the "
+                f"data-mesh size ({self.world} devices); set TPU.TRAIN_DEVICES to train on a "
+                "subset of devices"
+            )
         self.arch = GlassArch.from_config(cfg)
         self.tcfg = TrainConfig.from_config(cfg)
         self.out_dir = cfg.OUTPUT_DIR
         os.makedirs(self.out_dir, exist_ok=True)
-        self.storage = EventStorage(os.path.join(self.out_dir, "metrics.json"))
+        # d2 JSONWriter semantics: rank 0 streams scalars to metrics.json
+        self.storage = EventStorage(
+            os.path.join(self.out_dir, "metrics.json") if self.rank == 0 else None)
         self.seed = cfg.SEED if cfg.SEED >= 0 else 0
         model = init_weights_(GlassRCNN(self.arch), self.seed)
         if cfg.MODEL.WEIGHTS:
             load_weights_(model, cfg.MODEL.WEIGHTS)
         self.model = model.to(self.device).train()
+        if self.group is not None:
+            # DDP's rule: every replica starts from rank 0's state
+            mesh.broadcast_state_(self.model, 0, self.group)
+            if not mesh.replicas_agree(self.model.state_dict().values(), self.group):
+                raise RuntimeError("the replicas' initial states differ after the broadcast")
         self.optimizer = build_optimizer(cfg, self.model)
         self.start_iter = 0
         self._interrupted = False
@@ -110,10 +127,25 @@ class Trainer:
         for name in self.cfg.DATASETS.TRAIN:
             records.extend(DatasetManager.load(name))
         # d2 default_setup: SEED >= 0 seeds the augmentations with seed + rank
-        aug_rng = np.random.RandomState(self.cfg.SEED) if self.cfg.SEED >= 0 else None
+        aug_rng = np.random.RandomState(self.cfg.SEED + self.rank) if self.cfg.SEED >= 0 else None
         mapper = DatasetMapper(self.cfg, is_train=True, rng=aug_rng)
-        return build_train_loader(self.cfg, records, mapper, batch_size=self.cfg.SOLVER.IMS_PER_BATCH,
-                                  seed=max(self.cfg.SEED, 0))
+        # SOLVER.IMS_PER_BATCH is the global batch; each rank loads its share
+        if mesh.multi_host() and not self.cfg.TPU.TRAIN_PAD_SIZE:
+            raise ValueError(
+                "multi-host training requires a fixed TPU.TRAIN_PAD_SIZE "
+                "[H, W] so all processes emit identical batch shapes"
+            )
+        return build_train_loader(self.cfg, records, mapper,
+                                  batch_size=self.cfg.SOLVER.IMS_PER_BATCH // self.world,
+                                  seed=max(self.cfg.SEED, 0), rank=self.rank, world=self.world)
+
+    def _next_batch(self, loader) -> dict:
+        """The rank's next host batch, padded to the global batch's image
+        size when the ranks' sizes may differ."""
+        batch = next(loader)
+        if self.world > 1 and not self.cfg.TPU.TRAIN_PAD_SIZE:
+            batch = mesh.agree_batch_shape(batch, self.group)
+        return batch
 
     # -- checkpoint / resume ----------------------------------------------
     def resume_or_load(self, resume: bool = True):
@@ -129,7 +161,7 @@ class Trainer:
 
     def save(self, iteration: int):
         self._last_saved_iter = iteration
-        save_checkpoint(self.out_dir, iteration, self.model, self.optimizer)
+        save_checkpoint(self.out_dir, iteration, self.model, self.optimizer, group=self.group)
         logger.info("Saved checkpoint at iteration %d", iteration)
 
     # -- precise BN -------------------------------------------------------
@@ -139,7 +171,9 @@ class Trainer:
         statistics over ``num_iter`` train batches (d2 ``PreciseBN``), the
         weights held fixed.  Each pass starts from the same running
         statistics, so glass_tpu's inversion of the EMA recovers the mean of
-        the batch statistics exactly; frozen stages keep theirs."""
+        the batch statistics exactly; frozen stages keep theirs.  With more
+        than one process each rank averages its own batches, unsynced, as
+        glass_tpu's PreciseBN does per process."""
         num_iter = int(num_iter or self.cfg.TEST.PRECISE_BN.NUM_ITER)
         bns = [m for m in self.model.modules() if isinstance(m, BatchNorm2d)]
         orig = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
@@ -163,7 +197,11 @@ class Trainer:
     # -- periodic evaluation ----------------------------------------------
     def test(self, max_images: Optional[int] = None):
         """Evaluate the current weights on cfg.DATASETS.TEST with the port's
-        ``GlassRunner`` and ``TextEvaluator`` (glass_tpu's in-training eval)."""
+        ``GlassRunner`` and ``TextEvaluator`` (glass_tpu's in-training eval).
+
+        With more than one process EVERY rank must enter: each evaluates
+        its strided shard of the records and the evaluator gathers them, so
+        all ranks return the metrics of the whole set."""
         if not self.cfg.DATASETS.TEST:
             return {}
         if self.cfg.TEST.PRECISE_BN.ENABLED and self.cfg.DATASETS.TRAIN:
@@ -180,6 +218,7 @@ class Trainer:
             records = DatasetManager.load(name)
             if max_images:
                 records = records[:max_images]
+            records = records[self.rank::self.world]
             evaluator = TextEvaluator(name, self.cfg)
             shown = 0
             for i, record in enumerate(records):
@@ -204,7 +243,7 @@ class Trainer:
     def _maybe_visualize(self, it: int, batch: dict):
         """VIS_PERIOD minibatch dump: the batch's first image with its gt boxes."""
         period = self.cfg.VIS_PERIOD
-        if not period or it % period != 0:
+        if not period or it % period != 0 or self.rank != 0:
             return
         try:
             import cv2
@@ -231,6 +270,14 @@ class Trainer:
             except ValueError:
                 pass  # not the main thread
 
+    def _any_interrupted(self) -> bool:
+        """A signal on any rank stops every rank at the same iteration."""
+        if self.group is None:
+            return self._interrupted
+        flag = torch.tensor([int(self._interrupted)], device=mesh.collective_device(self.group))
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        return bool(flag.item())
+
     def train(self, max_iter: Optional[int] = None):
         max_iter = max_iter or self.cfg.SOLVER.MAX_ITER
         loader = self.build_train_loader()
@@ -243,12 +290,13 @@ class Trainer:
         data_wait = 0.0
         for it in range(self.start_iter, max_iter):
             td = time.time()
-            host_batch = next(loader)
+            host_batch = self._next_batch(loader)
             data_wait += time.time() - td
             self._maybe_visualize(it, host_batch)
             batch = batch_to_device(host_batch, self.device)
             metrics = train_step(self.model, self.optimizer, self.tcfg, batch,
-                                 Priorities(self.seed + 1, it, self.device), it)
+                                 Priorities(self.seed + 1, it, self.device, self.rank), it,
+                                 group=self.group)
             self.storage.step(it)
             if it % 20 == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
@@ -271,7 +319,7 @@ class Trainer:
                     self.test()
                 except Exception as e:
                     logger.warning("periodic eval failed: %s", e)
-            if self._interrupted:
+            if self._any_interrupted():
                 self.save(it)
                 self.storage.flush()
                 logger.warning("Exiting on signal at iteration %d", it)

@@ -183,7 +183,9 @@ def test_per_sample_json_equal(runs):
 def test_tta_and_multi_process_raise(runs, tmp_path, monkeypatch):
     """``--tta`` is ported (tests/test_torch_tta.py holds it against
     tools/eval_glass.py --tta): here it evaluates with one view.  More than
-    one process still raises."""
+    one process is ported too (tests/test_torch_distributed_eval.py runs two
+    gloo ranks): as rank 1 of 2, the CLI evaluates the strided shard
+    ``records[1::2]``, hands it to the gather and writes no results.json."""
     args = ["--config", ICDAR15, "--output", str(tmp_path), "--device", "cpu"]
     common = ["--datasets", os.path.join(runs, "datasets.yaml"), "--model", os.path.join(runs, "model.pth")]
     res = port_eval.main(args + common + ["--tta", "--max-images", "1", *OPTS,
@@ -192,8 +194,15 @@ def test_tta_and_multi_process_raise(runs, tmp_path, monkeypatch):
     assert os.path.exists(os.path.join(tmp_path, "results.json"))
     import torch.distributed as dist
 
+    from glass_tpu_torch.evaluation import TextEvaluator
+
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    monkeypatch.setattr(dist, "get_rank", lambda: 0)
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        port_eval.main(args)
+    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda *a, **k: 1)
+    gathered = []
+    monkeypatch.setattr(TextEvaluator, "gather_across_processes",
+                        lambda self: gathered.append(sorted(self._dets)))
+    out = tmp_path / "rank1"
+    port_eval.main(["--config", ICDAR15, "--output", str(out), "--device", "cpu", *common, *OPTS])
+    assert gathered == [["2"]]  # image ids 1, 2, 3: rank 1 of 2 takes the second
+    assert not os.path.exists(out / "results.json") and not os.path.exists(out / "toy_test_det.zip")

@@ -208,8 +208,22 @@ def test_periodic_eval_runs_the_port_runner_after_precise_bn(trained):
     assert trainer.model.training  # back to training mode after the eval
 
 
-def test_cli_module_refuses_distributed():
+def test_cli_module_refuses_distributed(trained, tmp_path):
+    """``--distributed`` is ported: ``python -m glass_tpu_torch.train
+    --distributed --device cpu`` joins the one-rank gloo group the
+    environment describes (torchrun's variables) and trains a step."""
+    from glass_tpu_torch.parallel.mesh import free_port
+
+    out = str(tmp_path / "dist")
+    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "OMP_NUM_THREADS": "2"}
     proc = subprocess.run([sys.executable, "-m", "glass_tpu_torch.train", "--config", CONFIG,
-                           "--distributed", "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
+                           "--datasets", trained["ds"], "--output", out, "--distributed", "--device", "cpu",
+                           "--max-iter", "1", *SMALL], cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=300)
-    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr and "distributed slice" in proc.stderr
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with open(os.path.join(out, "last_checkpoint")) as f:
+        assert f.read().strip() == "model_0000000.pth"
+    with open(os.path.join(out, "metrics.json")) as f:
+        assert np.isfinite(json.loads(f.readline())["total_loss"])
+    os.remove(os.path.join(out, "model_0000000.pth"))  # several hundred MB
