@@ -131,6 +131,36 @@ Phases:
      padding row) and b = 4 equals b = 1 serving bit for bit, with 3 K1 and
      1 K2 launches a row; with the card alone it is phase 4's one-model
      path, bit for bit.
+ 12. float16, remat and the chunked loop: (a) the fp16 builds of K1 (the
+     three poolers at the eval and the training shapes), K1b (training
+     shapes, phase 7's bound) and K2 (sampling ratios 1, 2 and 0, phase
+     3's edge cases) against their plain versions, with grid_sample in fp16
+     as K2's yardstick; (b) TPU.COMPUTE_DTYPE float16 serving on phase 4's
+     config, weights and images (2 warm-up, 8 timed: ``__call__`` and
+     ``run_model`` medians, peak memory beside phase 4's bf16, 3 K1 and 1
+     K2 launches an image) and its stages against f32 on the card (the
+     features, then the box head, the teacher-forced decoder and the mask
+     head on fixed boxes fed the f32 features cast to fp16, at
+     tests/test_bf16_serving_numerics.py's bounds, no non-finite value where
+     f32 has none); (c) 5 fp16 training steps of phase 8's config at
+     IMS_PER_BATCH 1 (finite losses, s/step, peak memory, launches), and
+     step 0's gradients of the whole network against an f32 step of the
+     same call with the draws and proposals replayed: the median over the
+     gradients of fp16's relative L2 no larger than bf16's, and a control
+     (fp16 with K1b's gradient halved) beyond it; (d) and (e) with the
+     weights held (BASE_LR 0), so that each step is a deterministic function
+     of what the loop feeds it: 10 iterations, CHECKPOINT_PERIOD 5, of K = 1
+     twice, TRAIN_LOOP_STEPS 4 and TPU.REMAT_BACKBONE, each bit for bit
+     K = 1's (the batch, priorities and iteration fed to each step, every
+     step's metrics, the final weights and BN statistics, the checkpoints),
+     and two wrong loops as controls (every step of a chunk fed its first
+     batch; the next iteration's priorities) that the metrics must catch;
+     s/step and host syncs a step for K = 4 and 1; remat's step 0
+     gradients in f32 within REMAT_GRAD_L2 of the plain step's, its s/step,
+     and each step's memory (``PeakProbe``: the peak of the forward and of
+     the whole step above what the step starts with) beside the plain
+     trainer's.  Phase 12's peaks count from what is allocated when each
+     part starts, after the earlier trainers are let go.
 
 Prints, on the last two lines, a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``, and copies everything it prints into
@@ -149,8 +179,11 @@ out_dir, device="cpu", opts=[...small bucket...], train_opts=[...small
 shapes...], steps=2, hw=(96, 128))``, and phase 11 with
 ``phase_distributed(state_dict, images, out_dir, device="cpu", n_images=4,
 hw=(96, 128), opts=[...small shapes...], step_opts=[...], steps=2,
-bf16_steps=2, serve_opts=[...small bucket...])``; they take ``device`` for
-that alone.
+bf16_steps=2, serve_opts=[...small bucket...])``, and phase 12 (b)-(e) with
+``phase_fp16_remat_loop(state_dict, images, out_dir, device="cpu",
+opts=[...small bucket...], train_opts=[...small shapes...], n_timed=2,
+steps=2, loop_iters=6, loop_k=3, loop_ckpt=2, n_images=3, hw=(96, 128),
+train_dtype="bfloat16")``; they take ``device`` for that alone.
 """
 
 from __future__ import annotations
@@ -409,13 +442,18 @@ def _max_err(got, ref) -> float:
     return (got.float() - ref.float()).abs().max().item() if ref.numel() else 0.0
 
 
+# significand bits after the leading one of each 2-byte compute dtype
+ULP_BITS = {torch.bfloat16: 7, torch.float16: 10}
+
+
 def _tolerance(ref, dtype, exact_tol):
     """f32/uint8: the kernel repeats the plain version's arithmetic in the
     same order (no FMA contraction), so ``exact_tol`` is never used up (the
-    runs read 0); bf16: both round one f32 accumulator, so one bf16 ulp."""
-    if dtype != torch.bfloat16:
+    runs read 0); bf16 and fp16: both round one f32 accumulator, so one ulp
+    of that dtype."""
+    if dtype not in ULP_BITS:
         return exact_tol
-    return 2.0 ** -7 * max(1.0, ref.float().abs().max().item() if ref.numel() else 0.0)
+    return 2.0 ** -ULP_BITS[dtype] * max(1.0, ref.float().abs().max().item() if ref.numel() else 0.0)
 
 
 def k1_case(label, pyr, rois, levels, grid, out_hw, timed=True):
@@ -1262,10 +1300,14 @@ def _row_contributions(meta, rois, levels, grid, out_hw, n_rows):
     return counts
 
 
-def _bf16_spacing(x: torch.Tensor) -> torch.Tensor:
-    """Spacing of bf16 numbers at |x| (8 significant bits); 0 at 0."""
+def _spacing(x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Spacing of ``dtype`` numbers at |x| (bf16: 8 significant bits; fp16:
+    11, and never below its subnormal step 2^-24); 0 at 0."""
     _, e = torch.frexp(x.abs())
-    return torch.where(x == 0, torch.zeros_like(x), torch.ldexp(torch.ones_like(x), e - 8))
+    step = torch.ldexp(torch.ones_like(x), e - 1 - ULP_BITS[dtype])
+    if dtype == torch.float16:
+        step = torch.clamp(step, min=2.0 ** -24)
+    return torch.where(x == 0, torch.zeros_like(x), step)
 
 
 def k1b_reference(meta, rois, levels, grid, out_hw, n_rows, grad_out):
@@ -1282,13 +1324,14 @@ def k1b_reference(meta, rois, levels, grid, out_hw, n_rows, grad_out):
 
 def k1b_excess(got, ref, tol) -> float:
     """How far K1b's output exceeds its bound (<= 0 passes): f32 within
-    ``tol`` of the plain f32 result; bf16 against that result rounded to
-    bf16, within ``tol`` plus one bf16 ulp of the reference (two roundings
-    of sums that differ may differ by one ulp)."""
+    ``tol`` of the plain f32 result; bf16 or fp16 against that result
+    rounded to the output's dtype, within ``tol`` plus one ulp of that dtype
+    at the reference (two roundings of sums that differ may differ by one
+    ulp)."""
     if got.dtype == torch.float32:
         return ((got - ref).abs() - tol).max().item()
     ref_b = ref.to(got.dtype).float()
-    return ((got.float() - ref_b).abs() - tol - _bf16_spacing(ref.abs() + tol)).max().item()
+    return ((got.float() - ref_b).abs() - tol - _spacing(ref.abs() + tol, got.dtype)).max().item()
 
 
 def k1b_case(label, pyr, rois, levels, grid, out_hw, rng, timed=True, want_direct=False):
@@ -1426,13 +1469,14 @@ HEADS = ("proposal_generator.", "roi_heads.box_predictor.", "roi_heads.mask_head
 
 class StepClock:
     """Wraps the trainer's ``train_step``: synchronizes after each step and
-    keeps its wall time and its metrics as floats."""
+    keeps its wall time and its metrics as floats; ``after_step(i, model)``,
+    when given, runs after step i."""
 
-    def __init__(self, device):
+    def __init__(self, device, after_step=None):
         from glass_tpu_torch.train import trainer as trainer_mod
 
         self.mod, self.fn, self.device = trainer_mod, trainer_mod.train_step, device
-        self.ms, self.metrics = [], []
+        self.ms, self.metrics, self.after_step = [], [], after_step
 
     def __enter__(self):
         def timed(*a, **k):
@@ -1442,6 +1486,8 @@ class StepClock:
                 torch.cuda.synchronize()
             self.ms.append((time.perf_counter() - t0) * 1e3)
             self.metrics.append({key: float(v) for key, v in m.items()})
+            if self.after_step is not None:
+                self.after_step(len(self.metrics) - 1, a[0])
             return m
 
         self.mod.train_step = timed
@@ -1479,12 +1525,13 @@ class RecordedProposals:
     def __init__(self):
         from glass_tpu_torch.train import train_step as ts
 
-        self.ts, self.fn, self.saved, self.replay = ts, ts.select_proposals_single_image, [], False
+        self.ts, self.fn, self.saved, self.replay, self.pos = ts, ts.select_proposals_single_image, [], False, 0
 
     def __enter__(self):
         def recorded(*a, **k):
-            if self.replay:
-                out = self.saved.pop(0)
+            if self.replay:  # from the first recorded call again after ``pos = 0``
+                out = self.saved[self.pos]
+                self.pos += 1
                 return tuple(v.to(a[0][0].device) for v in out)
             out = self.fn(*a, **k)
             self.saved.append(tuple(v.cpu() for v in out))
@@ -1778,10 +1825,10 @@ def step_errors(card, cpu):
 TEXTOCR = os.path.join("configs", "glass_finetune_textocr.yaml")
 TOTALTEXT = os.path.join("configs", "glass_finetune_totaltext.yaml")
 PRETRAIN = os.path.join("configs", "glass_pretrain.yaml")
-N_TWO_STAGE = 12        # timed images per path (one-stage, two-stage), after one warm-up
+N_TWO_STAGE = 8         # timed images per path (one-stage, two-stage), after one warm-up
 N_COMPARED = 4          # images whose raw outputs two-stage and one-stage compare
 N_BELOW_CAP = 4         # timed calls per path at each raised threshold
-N_TTA_IMAGES = 2        # phase 6's scenes through eval --tta
+N_TTA_IMAGES = 1        # phase 6's scenes through eval --tta
 PRETRAIN_STEPS = 3      # glass_pretrain.yaml at its IMS_PER_BATCH 8
 REC, MASK = "roi_heads.recognizer_head.", "roi_heads.mask_head."
 # caffe2 R-50 trunk: (blocks, bottleneck width, output width) per stage
@@ -2798,6 +2845,612 @@ def dist_serving(state_dict, images, device, serve_opts, launches):
     return dict(launches=got)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: float16, remat and the chunked loop
+# ---------------------------------------------------------------------------
+
+
+def phase12_kernels(rng):
+    """12(a): the fp16 builds of K1 (the three poolers at the eval and the
+    training shapes), K1b (the training shapes, phase 7's bound) and K2
+    (the normalized fp16 image, sampling ratios 1, 2 and 0, and phase 3's
+    edge cases), each against its plain version; grid_sample in fp16 as
+    K2's yardstick."""
+    f16 = torch.float16
+    k1, k1b, k2 = [], [], []
+    rois = torch.from_numpy(word_rois(rng, N_ROIS, *BUCKET_HW)).cuda()
+    for name, *_ in POOLERS:
+        pyr, levels, grid, out_hw, _, _ = pooler_inputs(name, rng, f16, rois)
+        k1.append(k1_case(name, pyr, rois, levels, grid, out_hw))
+    h, w = TRAIN_BUCKET_HW
+    for name, n in TRAIN_ROIS.items():
+        trois = torch.from_numpy(word_rois(rng, n, h, w)).cuda()
+        pyr, levels, grid, out_hw = _train_pooler_inputs(name, rng, f16, trois)
+        k1.append(k1_case(f"train {name}", pyr, trois, levels, grid, out_hw))
+        k1b.append(k1b_case(f"train {name}", pyr, trois, levels, grid, out_hw, rng))
+    bh, bw = BUCKET_HW
+    raw = torch.from_numpy(rng.randint(0, 256, (bh, bw, 3)).astype(np.uint8)).cuda()
+    mean = torch.tensor([103.53, 116.28, 123.675], device="cuda")
+    std = torch.tensor([57.375, 57.12, 58.395], device="cuda")
+    image = ((raw.float() - mean) / std).to(f16)
+    for sr in (1, 2, 0):
+        k2.append(k2_case("float16", image, rois, (128, 128), sr, None, std))
+    column = rois.clone()
+    column[:, 0] = 0.5
+    edge = [k2_case("float16", image, rois[:n], (128, 128), 0, None, std, timed=False) for n in (0, 1)]
+    edge.append(k2_case("float16", image, rois, (32, 100), 2, None, std, timed=False))
+    edge.append(k2_case("float16 W=1", image[:, :1].contiguous(), column, (16, 8), 2, None, std, timed=False))
+    lib_ms = k2_yardstick(image, rois)
+    k2[0]["library_ms"] = lib_ms
+    for label, rows in (("K1 eval", k1[:3]), ("K1 train", k1[3:]), ("K1b train", k1b), ("K2 sr 1", k2[:1])):
+        ms, b_ms = sum(r["ms"] for r in rows), sum(r["bound_ms"] for r in rows)
+        log(f"phase 12 (a) fp16 {label}: {ms:.4f} ms, bound {b_ms:.4f} ms ({100 * b_ms / ms:.1f}%), plain "
+            f"{sum(r['plain_ms'] for r in rows):.3f} ms ({card_line()})")
+    return dict(k1=k1, k1b=k1b, k2=k2 + edge, k2_lib_ms=lib_ms)
+
+
+FP16_TIMED = 8          # 12(b): fp16 images through __call__ after 2 warm-up
+FP16_STEPS = 5          # 12(c): fp16 training steps at IMS_PER_BATCH 1
+LOOP_ITERS, LOOP_K, LOOP_CKPT = 10, 4, 5   # 12(d), (e): 10 iterations, TRAIN_LOOP_STEPS 4, checkpoint every 5
+STAGE_REL_TOL, STAGE_PROB_TOL = 0.05, 0.15  # tests/test_bf16_serving_numerics.py's bounds
+REMAT_GRAD_L2 = STEP_HEAD_L2  # 12(d): the remat step's f32 gradients against the plain step's, rel L2
+LOOP_FAULTS = ("first_batch", "next_priorities")  # 12(e)'s controls: wrong loops the check must fail
+
+
+def _digest(batch: dict) -> tuple:
+    """A batch's fingerprint: each tensor's name, shape and f64 sum."""
+    return tuple((k, tuple(v.shape), float(v.double().sum())) for k, v in sorted(batch.items())
+                 if torch.is_tensor(v))
+
+
+def _next_priorities(p):
+    """The priorities of the next iteration (its seed plus one)."""
+    from glass_tpu_torch.train.train_step import Priorities
+
+    q = Priorities(0, 0, p.device)
+    q.generator.manual_seed(p.generator.initial_seed() + 1)
+    return q
+
+
+class LoopClock:
+    """Wraps ``mesh.make_parallel_train_scan``, which the trainer's loop
+    runs each chunk through (one step a chunk at K = 1): each chunk's wall
+    time (a synchronize after it), each step's metrics, and what the loop
+    fed each step (its iteration, its priorities' seed, its batch's
+    ``_digest``), read once a chunk.  ``fault`` plants a wrong loop, for
+    12(e)'s controls: "first_batch" feeds every step of a chunk the chunk's
+    first batch, "next_priorities" the next iteration's priorities."""
+
+    def __init__(self, device, fault=None):
+        from glass_tpu_torch.parallel import mesh
+
+        self.mesh, self.fn, self.device, self.fault = mesh, mesh.make_parallel_train_scan, device, fault
+        self.chunks, self.metrics, self.fed = [], [], []
+
+    def __enter__(self):
+        def make(step):
+            scan = self.fn(step)
+
+            def timed(model, optimizer, tcfg, batches, priorities, iterations):
+                if self.fault == "first_batch":
+                    batches = [batches[0]] * len(batches)
+                elif self.fault == "next_priorities":
+                    priorities = [_next_priorities(p) for p in priorities]
+                self.fed += [(it, p.generator.initial_seed(), _digest(b))
+                             for it, p, b in zip(iterations, priorities, batches)]
+                t0 = time.perf_counter()
+                out = scan(model, optimizer, tcfg, batches, priorities, iterations)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize()
+                n = len(iterations)
+                self.chunks.append((n, (time.perf_counter() - t0) * 1e3))
+                host = {key: v.tolist() for key, v in out.items()}
+                self.metrics += [{key: v[j] for key, v in host.items()} for j in range(n)]
+                return out
+
+            return timed
+
+        self.mesh.make_parallel_train_scan = make
+        return self
+
+    def __exit__(self, *exc):
+        self.mesh.make_parallel_train_scan = self.fn
+
+
+class PeakProbe:
+    """Memory of each training step on the card, in MiB: allocated when its
+    forward starts, the peak of the forward, of forward and backward and of
+    the whole step (the SGD update included), and what is still allocated
+    after the backward and after the update.  It wraps
+    ``train_step.glass_train_forward`` and ``GlassOptimizer.step``."""
+
+    def __init__(self):
+        from glass_tpu_torch.train import train_step as ts
+        from glass_tpu_torch.train.optimizer import GlassOptimizer
+
+        self.ts, self.forward, self.opt, self.update = ts, ts.glass_train_forward, GlassOptimizer, GlassOptimizer.step
+        self.steps = []
+
+    @staticmethod
+    def _read():
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 2**20, torch.cuda.memory_allocated() / 2**20
+
+    def __enter__(self):
+        def forward(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            row = dict(start=torch.cuda.memory_allocated() / 2**20)
+            out = self.forward(*a, **k)
+            row["forward_peak"], row["after_forward"] = self._read()
+            self.steps.append(row)
+            return out
+
+        def update(opt, iteration):
+            row = self.steps[-1]
+            row["backward_peak"], row["after_backward"] = self._read()
+            lr = self.update(opt, iteration)
+            row["step_peak"], row["after_step"] = self._read()
+            return lr
+
+        self.ts.glass_train_forward, self.opt.step = forward, update
+        return self
+
+    def __exit__(self, *exc):
+        self.ts.glass_train_forward, self.opt.step = self.forward, self.update
+
+
+def stage_heads(model, feats, norm, boxes, targets):
+    """Box logits and deltas on fixed proposals, teacher-forced decoder
+    logits and mask probabilities on fixed boxes, as f32 tensors."""
+    from glass_tpu_torch.models import glass_rcnn as gr
+    from glass_tpu_torch.models.recognizer import aster_decode_train
+    from glass_tpu_torch.ops.roi_align_rotated import multilevel_pool
+
+    arch, rh = model.arch, model.roi_heads
+    pyr = gr.pack_box_pyramid(model, feats)
+    pooled = multilevel_pool(pyr, gr._min_level(model), boxes, (arch.box_pooler_resolution,) * 2,
+                             arch.box_pooler_sampling_ratio, arch.pool_max_sampling_ratio,
+                             arch.pool_bulk_sampling_ratio, arch.pool_large_roi_budget)
+    logits, deltas, _ = rh.box_predictor(rh.box_head(pooled).to(torch.float32))
+    enc = gr.recognizer_encode(model, feats, norm, boxes).to(torch.float32)
+    tf = aster_decode_train(rh.recognizer_head.aster, enc, targets, arch.max_word_len + 1)
+    masks = gr.mask_single_image(model, pyr, boxes, torch.zeros(boxes.shape[0], dtype=torch.int32,
+                                                               device=boxes.device))
+    return dict(box_logits=logits, box_deltas=deltas, decoder_logits=tf, mask_probs=masks.float())
+
+
+def fp16_stage_deltas(state_dict, image, device, opts=()):
+    """12(b): the fp16 stages against f32 on the device, each head on the
+    fixed inputs of the f32 backbone's features cast to fp16 (as
+    tests/test_torch_float16.py holds them on the CPU): features 5 %
+    relative, box logits and deltas and decoder logits 5 % relative, mask
+    probabilities 0.15; no non-finite value in fp16 where f32 has none."""
+    from glass_tpu_torch.inference import GlassRunner
+    from glass_tpu_torch.models import glass_rcnn as gr
+
+    rng = np.random.RandomState(12)
+    h, w = image.shape[:2]
+    n = 16
+    boxes = torch.from_numpy(np.stack([rng.uniform(100, w - 100, n), rng.uniform(50, h - 50, n),
+                                       rng.uniform(40, 300, n), rng.uniform(12, 60, n),
+                                       rng.uniform(-30, 30, n)], 1).astype(np.float32)).to(device)
+    models = {dt: GlassRunner(cfg=eval_cfg(dt, opts=opts), state_dict=state_dict, device=device).model
+              for dt in ("float32", "float16")}
+    targets = torch.from_numpy(rng.randint(2, 60, (n, models["float32"].arch.max_word_len + 2))
+                               .astype(np.int32)).to(device)
+    padded = np.zeros((-(-h // 32) * 32, -(-w // 32) * 32, 3), np.float32)
+    padded[:h, :w] = image
+    out = {}
+    with torch.inference_mode():
+        f32 = models["float32"]
+        norm32 = gr.preprocess(f32, torch.from_numpy(padded).to(device))
+        feats32 = gr.backbone_features(f32, norm32)
+        for dt, m in models.items():
+            norm = gr.preprocess(m, torch.from_numpy(padded).to(device))
+            own = gr.backbone_features(m, norm)
+            fixed = {k: v.to(m.arch.torch_dtype) for k, v in feats32.items()}
+            out[dt] = dict({f"feature {k}": v.float() for k, v in own.items()},
+                           **stage_heads(m, fixed, norm, boxes, targets))
+    errs, nonfinite = {}, {}
+    for k, want in out["float32"].items():
+        got = out["float16"][k]
+        bad16, bad32 = int((~torch.isfinite(got)).sum()), int((~torch.isfinite(want)).sum())
+        nonfinite[k] = (bad16, bad32)
+        d = (got - want).abs().max().item()
+        errs[k] = d if k == "mask_probs" else d / max(want.abs().max().item(), 1e-6)
+    worse = {k: v for k, v in nonfinite.items() if v[0] and not v[1]}
+    over = {k: v for k, v in errs.items() if v > (STAGE_PROB_TOL if k == "mask_probs" else STAGE_REL_TOL)}
+    log(f"fp16 (b) stage deltas against f32 on the device ({len(boxes)} fixed boxes): "
+        + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
+        + f"; non-finite (fp16, f32) per stage {nonfinite} -> {'ok' if not (worse or over) else 'FAILED'}")
+    if worse or over:
+        raise AssertionError(f"fp16 stage deltas: beyond the bounds {over}; non-finite in fp16 only {worse}")
+    return dict(errs=errs, nonfinite=nonfinite)
+
+
+def _reset_peak(device) -> int:
+    """Reset the peak-memory counter; returns the bytes already allocated
+    (earlier phases' live tensors), which ``_peak_mib`` leaves out, so that
+    phase 12's peaks read like phases 4 and 8's, taken with nothing
+    allocated before them."""
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_mib(device, base) -> float:
+    return (torch.cuda.max_memory_allocated() - base) / 2**20 if device.type == "cuda" else 0.0
+
+
+def serve_timed(cfg, state_dict, images, device, n_timed):
+    """``GlassRunner.__call__`` on 2 warm-up images then ``n_timed``:
+    medians of ``__call__`` and ``run_model`` (ms), peak memory (MiB), the
+    kernels' launches and the outputs' finiteness."""
+    from glass_tpu_torch.inference import GlassRunner
+    from glass_tpu_torch.ops import _cuda
+
+    runner = GlassRunner(cfg=cfg, state_dict=state_dict, device=device)
+    run_model, model_ms = runner.run_model, []
+
+    def timed_run_model(image):
+        t0 = time.perf_counter()
+        out = run_model(image)
+        model_ms.append((time.perf_counter() - t0) * 1e3)
+        finite.append(all(np.isfinite(np.asarray(v, np.float32)).all() for k, v in out.items()
+                          if isinstance(v, np.ndarray) and v.dtype.kind == "f"))
+        return out
+
+    finite, times = [], []
+    runner.run_model = timed_run_model
+    cuda = device.type == "cuda"
+    base = _reset_peak(device)
+    _cuda.LAUNCHES.clear()
+    for i in range(2 + n_timed):
+        t0 = time.perf_counter()
+        runner(images[i % len(images)])
+        if cuda:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return dict(call_ms=float(np.median(times[2:])), model_ms=float(np.median(model_ms[2:])),
+                peak_mib=_peak_mib(device, base), launches=dict(_cuda.LAUNCHES), finite=all(finite),
+                n=len(times))
+
+
+def train_run(root, name, ds_yaml, device, opts, steps, fault=None, probe=False, keep_trainer=False):
+    """``glass_tpu_torch.train.main`` for ``steps`` iterations under a
+    ``LoopClock`` (with ``fault``): per-step metrics, what each step was
+    fed, per-step ms (a chunk's mean), peak memory, launches, the final
+    state, the checkpoints, with ``probe`` the ``PeakProbe`` rows and with
+    ``keep_trainer`` the trainer."""
+    import contextlib
+    import gc
+    import signal
+
+    from glass_tpu_torch import train as port_train
+    from glass_tpu_torch.ops import _cuda
+
+    # a trainer's SIGTERM/SIGINT handler holds it (and its weights, momentum
+    # and gradients on the card) until the next trainer replaces the
+    # handler: let the last one go first, or it is in this run's base and
+    # freed during the run, and the run's peak reads low by its size
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    signal.signal(signal.SIGINT, signal.default_int_handler)
+    gc.collect()
+    base = _reset_peak(device)
+    _cuda.LAUNCHES.clear()
+    clock = LoopClock(device, fault)
+    peaks = PeakProbe() if probe else contextlib.nullcontext()
+    out = os.path.join(root, name)
+    with clock, peaks:
+        t0 = time.perf_counter()
+        trainer = port_train.main(["--config", ICDAR15, "--datasets", ds_yaml, "--device", str(device),
+                                   "--output", out, "--max-iter", str(steps), *opts])
+        wall = time.perf_counter() - t0
+    return dict(metrics=clock.metrics, fed=clock.fed, step_ms=[ms / n for n, ms in clock.chunks for _ in range(n)],
+                wall_s=wall, launches=dict(_cuda.LAUNCHES), chunks=[n for n, _ in clock.chunks],
+                peak_mib=_peak_mib(device, base), trainer=trainer if keep_trainer else None,
+                probe=peaks.steps if probe else None,
+                state={k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()},
+                ckpts=sorted(f for f in os.listdir(out) if f.endswith(".pth")))
+
+
+def _median_s(run, skip=2):
+    ms = run["step_ms"][skip:] or run["step_ms"]
+    return float(np.median(ms)) / 1e3
+
+
+def _mean_s(run, first):
+    """Mean s/step from iteration ``first`` on (a chunk boundary)."""
+    return float(np.mean(run["step_ms"][first:])) / 1e3
+
+
+def phase_fp16_remat_loop(state_dict, images, out_dir, device="cuda", main=None, train=None, opts=(),
+                          train_opts=(), n_timed=FP16_TIMED, steps=FP16_STEPS, loop_iters=LOOP_ITERS,
+                          loop_k=LOOP_K, loop_ckpt=LOOP_CKPT, n_images=8, hw=(720, 1280),
+                          train_dtype="float16"):
+    """Phase 12 (b)-(e); see the module docstring.  ``opts``,
+    ``train_opts``, the counts and ``hw`` cut the sizes for a CPU rehearsal
+    (``device="cpu"``, where the card-only checks are skipped and
+    ``train_dtype`` bfloat16 stands in for fp16 training, whose convolution
+    backward the CPU runs through a reference path)."""
+    device = torch.device(device)
+    root = os.path.join(out_dir, "fp16_remat_loop")
+    os.makedirs(root, exist_ok=True)
+    try:
+        return _phase_fp16_remat_loop(state_dict, images, root, device, main, train, list(opts),
+                                      list(train_opts), n_timed, steps, loop_iters, loop_k, loop_ckpt,
+                                      n_images, hw, train_dtype)
+    finally:  # images and checkpoints are large; the logs stay
+        import glob
+        import shutil
+
+        shutil.rmtree(os.path.join(root, "ds"), ignore_errors=True)
+        for f in glob.glob(os.path.join(root, "**", "*.pth"), recursive=True):
+            os.remove(f)
+
+
+def _phase_fp16_remat_loop(state_dict, images, root, device, main, train, opts, train_opts, n_timed,
+                           steps, loop_iters, loop_k, loop_ckpt, n_images, hw, train_dtype):
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "CPU"
+    launches = collections.Counter()
+    res = {}
+
+    # (b) serving in fp16: phase 4's config, weights and images
+    srv = serve_timed(eval_cfg("float16", opts=opts), state_dict, images, device, n_timed)
+    launches.update(srv["launches"])
+    p4 = (f"phase 4 (bf16): __call__ {main['median_ms']:.2f} ms, peak {main['peak_mib']:.0f} MiB"
+          if main else "phase 4 not run in this call")
+    log(f"fp16 (b) serving ({card}): {n_timed} timed images after 2 warm-up: __call__ median "
+        f"{srv['call_ms']:.2f} ms, run_model median {srv['model_ms']:.2f} ms, peak {srv['peak_mib']:.0f} MiB; "
+        f"{p4}; launches {srv['launches']}; outputs finite {srv['finite']}")
+    if not srv["finite"]:
+        raise AssertionError("fp16 serving: non-finite outputs")
+    if cuda and srv["launches"] != {"roi_align_rotated": 3 * srv["n"], "crop_rois": srv["n"]}:
+        raise AssertionError(f"fp16 serving: launches {srv['launches']} over {srv['n']} images")
+    res["serve"] = {k: v for k, v in srv.items() if k != "launches"}
+    res["stages"] = fp16_stage_deltas(state_dict, images[0], device, opts)
+
+    ds_yaml = write_eval_set(root, n_images, hw, seed=3, name="synth_train", train=True)
+    base = ["SOLVER.CHECKPOINT_PERIOD", "0", "TEST.EVAL_PERIOD", "0", "VIS_PERIOD", "0",
+            "SOLVER.BASE_LR", TRAIN_LR, "SEED", "0", *train_opts]
+
+    # (c) training in fp16: phase 8's config, no loss scaling (as glass_tpu)
+    c = train_run(root, "fp16", ds_yaml, device, base + ["TPU.COMPUTE_DTYPE", train_dtype], steps)
+    launches.update(c["launches"])
+    bad = [i for i, m in enumerate(c["metrics"]) if not all(np.isfinite(v) for v in m.values())]
+    p8 = f"{train['median_s']:.3f} s/step, peak {train['peak_mib']:.0f} MiB" if train else "not run in this call"
+    log(f"fp16 (c) training ({card}, {train_dtype}): {steps} steps at IMS_PER_BATCH 1: s/step median "
+        f"{_median_s(c):.3f}, peak {c['peak_mib']:.0f} MiB (phase 8, bf16: {p8}); total loss per step "
+        f"{[round(m['total_loss'], 4) for m in c['metrics']]}; launches {c['launches']}")
+    if bad:
+        raise AssertionError(f"fp16 training: non-finite losses at steps {bad}: {c['metrics'][bad[0]]}")
+    if cuda:
+        _check_launches(c["launches"], steps, 1, "fp16")
+    res["fp16_train"] = dict(median_s=_median_s(c), peak_mib=c["peak_mib"], losses=c["metrics"])
+    del c
+    # (c) and (d): step 0's gradients of the whole network against f32
+    res["grads"] = grad_check(ds_yaml, device, base, train_dtype)
+
+    # (d) and (e) with the weights held (BASE_LR 0): each step's forward is
+    # then a function of its batch and priorities alone, and deterministic
+    frozen = base + ["SOLVER.BASE_LR", "0.0", "TPU.COMPUTE_DTYPE", "bfloat16",
+                     "SOLVER.CHECKPOINT_PERIOD", str(loop_ckpt)]
+    chunked_opts = frozen + ["TPU.TRAIN_LOOP_STEPS", str(loop_k)]
+    one = train_run(root, "k1", ds_yaml, device, frozen, loop_iters, probe=cuda)
+    runs = dict(again=train_run(root, "k1_again", ds_yaml, device, frozen, loop_iters),
+                chunked=train_run(root, f"k{loop_k}", ds_yaml, device, chunked_opts, loop_iters,
+                                  keep_trainer=True),
+                remat=train_run(root, "remat", ds_yaml, device, frozen + ["TPU.REMAT_BACKBONE", "True"],
+                                loop_iters, probe=cuda))
+    for fault in LOOP_FAULTS:
+        runs[fault] = train_run(root, fault, ds_yaml, device, chunked_opts, loop_iters, fault=fault)
+    launches.update(runs["chunked"]["launches"])
+    launches.update(runs["remat"]["launches"])
+    same = {name: _same_run(r, one) for name, r in runs.items()}
+    for name, d in same.items():
+        log(f"loop and remat ({card}, bf16, BASE_LR 0, {loop_iters} iterations, CHECKPOINT_PERIOD {loop_ckpt}): "
+            f"{name} against K = 1: {d['text']}")
+    sound = [n for n in ("again", "chunked", "remat") if not same[n]["equal"]]
+    caught = [f for f in LOOP_FAULTS if not same[f]["metrics_equal"]]
+    if sound or caught != list(LOOP_FAULTS):
+        raise AssertionError(f"loop/remat: differ from K = 1: {sound}; controls caught by the losses: "
+                             f"{caught} of {LOOP_FAULTS}")
+    chunked, remat = runs["chunked"], runs["remat"]
+    syncs = {k: _loop_syncs(chunked["trainer"], device, k) for k in (loop_k, 1)}
+    first = chunked["chunks"][0]  # after the first chunk, as K = 1 from the same iteration
+    mean_s = {"chunked": _mean_s(chunked, first), "k1": _mean_s(one, first),
+              "k1_again": _mean_s(runs["again"], first)}
+    log(f"loop (e) ({card}): TRAIN_LOOP_STEPS {loop_k}: chunks {chunked['chunks']}, checkpoints "
+        f"{chunked['ckpts']}; mean s/step from iteration {first}: K = {loop_k} {mean_s['chunked']:.3f}, "
+        f"K = 1 {mean_s['k1']:.3f} and {mean_s['k1_again']:.3f} (a synchronize a chunk); host syncs a step "
+        f"in a chunk of {loop_k} {syncs[loop_k]:.2f}, of 1 {syncs[1]:.2f}; launches {chunked['launches']}")
+    if cuda:
+        _check_launches(chunked["launches"], loop_iters, 1, f"TRAIN_LOOP_STEPS {loop_k}")
+        _check_launches(remat["launches"], loop_iters, 1, "remat")
+    res["loop"] = dict(mean_s=mean_s, syncs_per_step=syncs, ckpts=chunked["ckpts"], chunks=chunked["chunks"],
+                       controls={f: same[f]["worst_rel"] for f in LOOP_FAULTS})
+    peak = {k: max((r["step_peak"] - r["start"] for r in run["probe"] or []), default=0.0)
+            for k, run in (("plain", one), ("remat", remat))}
+    fwd = {k: max((r["forward_peak"] - r["start"] for r in run["probe"] or []), default=0.0)
+           for k, run in (("plain", one), ("remat", remat))}
+    log(f"remat (d) ({card}, bf16): s/step median remat {_median_s(remat):.3f}, plain {_median_s(one):.3f}; "
+        f"peak over {loop_iters} steps (weights and momentum included) remat {remat['peak_mib']:.0f} MiB, plain "
+        f"{one['peak_mib']:.0f} MiB; largest peak above a step's start: over the step remat {peak['remat']:.0f} "
+        f"MiB, plain {peak['plain']:.0f} MiB; over the forward remat {fwd['remat']:.0f} MiB, plain "
+        f"{fwd['plain']:.0f} MiB")
+    for k, run in (("plain", one), ("remat", remat)):
+        for i, r in enumerate(run["probe"] or []):
+            log(f"  remat (d) {k} step {i} MiB: " + ", ".join(f"{key} {v:.0f}" for key, v in r.items()))
+    res["remat"] = dict(median_s={"remat": _median_s(remat), "plain": _median_s(one)},
+                        peak_mib={"remat": remat["peak_mib"], "plain": one["peak_mib"]}, step_peak_mib=peak,
+                        forward_peak_mib=fwd,
+                        probe={"plain": one["probe"], "remat": remat["probe"]})
+    log(f"phase 12 launches ({card}): {dict(launches)}")
+    res["launches"] = dict(launches)
+    return res
+
+
+def _same_run(run, ref) -> dict:
+    """``run`` against the K = 1 run ``ref``, both with the weights held:
+    what each step was fed, its metrics, the final state (weights, BN
+    statistics, every buffer) and the checkpoints, each bit for bit, and
+    the largest relative difference of a step's total loss."""
+    fed = run["fed"] == ref["fed"]
+    metrics = run["metrics"] == ref["metrics"]
+    state = set(run["state"]) == set(ref["state"]) and all(torch.equal(v, ref["state"][k])
+                                                           for k, v in run["state"].items())
+    ckpts = run["ckpts"] == ref["ckpts"]
+    rel = [abs(a["total_loss"] - b["total_loss"]) / max(abs(b["total_loss"]), 1e-6)
+           for a, b in zip(run["metrics"], ref["metrics"])]
+    n_diff = sum(a != b for a, b in zip(run["metrics"], ref["metrics"]))
+    worst = max(rel, default=0.0)
+    return dict(equal=fed and metrics and state and ckpts, metrics_equal=metrics, worst_rel=worst,
+                text=(f"fed the same {fed}; metrics bit-identical {metrics} ({n_diff} of {len(rel)} steps "
+                      f"differ, total loss worst rel {worst:.3g}); final state bit-identical {state}; "
+                      f"checkpoints {run['ckpts']} the same {ckpts}"))
+
+
+def grad_check(ds_yaml, device, opts, low="float16"):
+    """12(c) and (d): step 0 of phase 8's config on one loader batch, from
+    the trainer's seeded weights, with the draws and the proposals of a
+    first f32 step replayed into every other (``RecordedDraws``,
+    ``RecordedProposals``), so every step samples the same rois: f32 again
+    (the card's own run-to-run floor: K1b and some backward kernels add with
+    atomics), f32 with remat, bf16, ``low`` (fp16) and, as the control,
+    ``low`` with K1b's gradient halved.  Each parameter's gradient against
+    the first f32 step in relative L2, leaving out the few that two f32
+    steps disagree on beyond REMAT_GRAD_L2 (rounding noise).  Fails unless
+    the remat step's losses and BN statistics equal f32's bit for bit and
+    each of its gradients lies within REMAT_GRAD_L2, and, on the card, the
+    median over the gradients of ``low`` lies no further from f32 than
+    bf16's and the control's beyond it.  On the CPU ``low`` is bf16 (its
+    fp16 convolution backward takes minutes)."""
+    import contextlib
+    import dataclasses
+
+    from glass_tpu_torch.config import get_cfg, merge_from_dataset_config
+    from glass_tpu_torch.data import DatasetManager
+    from glass_tpu_torch.data.loader import build_train_loader
+    from glass_tpu_torch.data.mapper import DatasetMapper
+    from glass_tpu_torch.models import GlassArch, GlassRCNN
+    from glass_tpu_torch.ops import roi_align_rotated as ra
+    from glass_tpu_torch.train.train_step import TrainConfig, batch_to_device, glass_train_forward
+    from glass_tpu_torch.train.trainer import init_weights_
+
+    @contextlib.contextmanager
+    def halved_k1b():
+        backward = ra.RoIAlignRotatedFunction.backward
+
+        def halved(ctx, grad_out):
+            grad, *rest = backward(ctx, grad_out)
+            return (grad * 0.5, *rest)
+
+        ra.RoIAlignRotatedFunction.backward = staticmethod(halved)
+        try:
+            yield
+        finally:
+            ra.RoIAlignRotatedFunction.backward = staticmethod(backward)
+
+    cfg = get_cfg(ICDAR15)
+    merge_from_dataset_config(cfg, ds_yaml)
+    cfg.merge_from_list(list(opts))
+    DatasetManager(cfg).register()
+    records = DatasetManager.load(cfg.DATASETS.TRAIN[0])
+    host = next(iter(build_train_loader(cfg, records, DatasetMapper(cfg, True, np.random.RandomState(0)), 1)))
+    arch, tcfg = GlassArch.from_config(cfg), TrainConfig.from_config(cfg)
+    state = init_weights_(GlassRCNN(dataclasses.replace(arch, compute_dtype="float32")),
+                          max(int(cfg.SEED), 0)).state_dict()
+    runs = [("f32", "float32", False, False), ("f32 again", "float32", False, False),
+            ("f32 remat", "float32", True, False), ("bf16", "bfloat16", False, False),
+            (low, low, False, False), (f"{low} with K1b halved", low, False, True)]
+    draws, out = RecordedDraws(11), {}
+    with RecordedProposals() as props:
+        for i, (name, dt, remat, halve) in enumerate(runs):
+            model = GlassRCNN(dataclasses.replace(arch, compute_dtype=dt, remat_backbone=remat))
+            model.load_state_dict(state)
+            model = model.to(device).train()
+            props.pos = 0
+            with halved_k1b() if halve else contextlib.nullcontext():
+                total, losses = glass_train_forward(model, tcfg, batch_to_device(host, device),
+                                                    draws.for_device(device, replay=i > 0))
+                total.backward()
+            out[name] = dict(
+                losses={k: float(v.detach()) for k, v in losses.items()},
+                grads={n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
+                       if p.grad is not None},
+                bn={k: v.detach().cpu() for k, v in model.state_dict().items() if "running_" in k})
+            props.replay = True
+            del model, total, losses
+    ref = out.pop("f32")
+    names = list(ref["grads"])
+
+    def rel_l2(run):
+        return {n: float((run["grads"][n] - ref["grads"][n]).norm() / max(float(ref["grads"][n].norm()), 1e-30))
+                for n in names}
+
+    # a gradient the card's two f32 steps disagree on beyond REMAT_GRAD_L2 is
+    # rounding noise (a bias that a softmax cannot see)
+    floor = rel_l2(out["f32 again"])
+    noise = sorted(n for n, e in floor.items() if e > REMAT_GRAD_L2)
+    held = [n for n in names if n not in noise]
+    log(f"grads (c)/(d): {len(noise)} of {len(names)} gradients are rounding noise (f32 against f32 beyond "
+        f"{REMAT_GRAD_L2}), held to finiteness alone: {[(n, round(floor[n], 3)) for n in noise]}")
+    readings = {}
+    for name, run in out.items():
+        if set(run["grads"]) != set(names):
+            raise AssertionError(f"grad check: {name} has another set of gradients")
+        errs = rel_l2(run)
+        finite = all(bool(torch.isfinite(g).all()) for g in run["grads"].values())
+        worst = sorted(((n, errs[n]) for n in held), key=lambda kv: -kv[1])
+        q = np.quantile([errs[n] for n in held], [0.5, 0.9])
+        groups = {g: float(np.median([errs[n] for n in held if n.startswith(g)]))
+                  for g in ("backbone.bottom_up.", "backbone.fpn", "proposal_generator.", "roi_heads.")}
+        loss_rel = max(abs(v - ref["losses"][k]) / max(abs(ref["losses"][k]), 1e-6) for k, v in run["losses"].items())
+        readings[name] = dict(median=float(q[0]), p90=float(q[1]), max=worst[0][1], groups=groups, finite=finite,
+                              loss_rel=loss_rel, losses_equal=run["losses"] == ref["losses"],
+                              bn_equal=all(torch.equal(v, ref["bn"][k]) for k, v in run["bn"].items()))
+        log(f"grads (c)/(d) ({card_line() if device.type == 'cuda' else 'CPU'}): step 0, {name} against f32 "
+            f"over {len(held)} gradients: rel L2 median {q[0]:.3g}, 90th percentile {q[1]:.3g}, max "
+            f"{worst[0][1]:.3g} {[(n, round(e, 5)) for n, e in worst[:3]]}; medians by part "
+            f"{ {g: round(v, 4) for g, v in groups.items()} }; finite {finite}; losses worst rel {loss_rel:.3g}, "
+            f"bit-identical {readings[name]['losses_equal']}; BN statistics bit-identical {readings[name]['bn_equal']}")
+    r, bf, lo, ctl = readings["f32 remat"], readings["bf16"], readings[low], readings[f"{low} with K1b halved"]
+    failed = []
+    if len(noise) > len(names) // 100:
+        failed.append(f"{len(noise)} gradients differ between two f32 steps beyond {REMAT_GRAD_L2}")
+    if not (r["losses_equal"] and r["bn_equal"] and r["max"] <= REMAT_GRAD_L2):
+        failed.append(f"remat: losses equal {r['losses_equal']}, BN equal {r['bn_equal']}, max {r['max']:.3g}")
+    # fp16 carries three more mantissa bits than bf16: its step may not lie
+    # further from f32 than bf16's, gradient by gradient in the median
+    if device.type == "cuda" and not (lo["finite"] and lo["median"] <= bf["median"]):
+        failed.append(f"{low}: finite {lo['finite']}, median {lo['median']:.3g} beyond bf16's {bf['median']:.3g}")
+    if device.type == "cuda" and ctl["median"] <= bf["median"]:
+        failed.append(f"the control passes: median {ctl['median']:.3g}, bf16's {bf['median']:.3g}")
+    if failed:
+        raise AssertionError(f"grad check: {failed}")
+    return readings
+
+
+def _loop_syncs(trainer, device, loop_k) -> float:
+    """Host syncs a step of one chunk of ``loop_k`` steps through
+    ``make_parallel_train_scan`` (the loader's batches, the trainer's own
+    step), read from ``set_sync_debug_mode``."""
+    from glass_tpu_torch.parallel import mesh
+    from glass_tpu_torch.train.train_step import Priorities, batch_to_device, train_step
+
+    loader = iter(trainer.build_train_loader())
+    batches = [batch_to_device(next(loader), device) for _ in range(loop_k)]
+    scan = mesh.make_parallel_train_scan(train_step)
+    its = list(range(loop_k))
+    syncs, _ = count_syncs(lambda: scan(trainer.model, trainer.optimizer, trainer.tcfg, batches,
+                                        [Priorities(0, i, device) for i in its], its), device)
+    return syncs / loop_k
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     return {
         "name": name,
@@ -2816,7 +3469,7 @@ def kernel_entry(name, source, replaces, launches, rows):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
     ap.add_argument("--out", default="chip_smoke_out", help="directory for the build log and the profile table")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -2838,14 +3491,14 @@ def main():
     rng = np.random.RandomState(0)
     rois_np = word_rois(rng, N_ROIS, *BUCKET_HW)
     k1_rows = k2_rows = k1b_rows = None
-    main = train = variants = distributed = None
+    main = train = variants = distributed = fp16 = None
     if 1 in phases:
         phase_build(args.out)
     if 2 in phases:
         k1_rows, k1_edge = phase_k1(rng, rois_np)
     if 3 in phases:
         k2_rows, k2_edge, k2_lib_ms = phase_k2(rng, rois_np)
-    if phases & {4, 5, 6, 9, 10, 11}:
+    if phases & {4, 5, 6, 9, 10, 11, 12}:
         images = [synthetic_image(np.random.RandomState(100 + i), 720, 1280) for i in range(N_IMAGES)]
         state_dict = seeded_weights(images[0])
         if 4 in phases:
@@ -2866,6 +3519,11 @@ def main():
         t0 = time.perf_counter()
         distributed = phase_distributed(state_dict, images, args.out, phase8=train)
         log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    if 12 in phases:
+        t0 = time.perf_counter()
+        fp16 = dict(kernels=phase12_kernels(np.random.RandomState(12)))
+        fp16.update(phase_fp16_remat_loop(state_dict, images, args.out, main=main, train=train))
+        log(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     # the main paths' launches: K1 and K2 from phase 4's serving, K1b from
@@ -2875,19 +3533,21 @@ def main():
     launches["roi_align_rotated_backward"] = (train or {}).get("launches", {}).get("roi_align_rotated_backward", 0)
     launches.update((variants or {}).get("launches", {}))
     launches.update((distributed or {}).get("launches", {}))
+    launches.update((fp16 or {}).get("launches", {}))
+    fp16_rows = (fp16 or {}).get("kernels", {})
     per_image = (main or {}).get("n_images", 1)
     if k1_rows:
         rows = [r for r in k1_rows if r["dtype"] == "bfloat16"]
         entry = kernel_entry("roi_align_rotated", "glass_tpu_torch/csrc/roi_align_rotated.cu",
                              "glass_tpu/ops/pallas_roi_align.py:33",
                              launches.get("roi_align_rotated", 0), rows)
-        entry["max_abs_err"] = max(r["err"] for r in k1_rows + k1_edge)
+        entry["max_abs_err"] = max(r["err"] for r in k1_rows + k1_edge + fp16_rows.get("k1", []))
         kernels.append(entry)
     if k2_rows:
         rows = [r for r in k2_rows if r["input"] == "bfloat16" and r["sr"] == 1]
         entry = kernel_entry("crop_rois", "glass_tpu_torch/csrc/crop_rois.cu",
                              "glass_tpu/ops/pallas_crop.py:77", launches.get("crop_rois", 0), rows)
-        entry["max_abs_err"] = max(r["err"] for r in k2_rows + k2_edge)
+        entry["max_abs_err"] = max(r["err"] for r in k2_rows + k2_edge + fp16_rows.get("k2", []))
         entry["library_ms"] = k2_lib_ms
         kernels.append(entry)
     if k1b_rows:
@@ -2896,11 +3556,13 @@ def main():
                              "glass_tpu_torch/csrc/roi_align_rotated_backward.cu",
                              "glass_tpu/ops/roi_align_rotated.py:375 (autodiff of the packed pooler)",
                              launches.get("roi_align_rotated_backward", 0), rows)
-        entry["max_abs_err"] = max(r["err"] for r in k1b_rows + k1b_edge)
+        entry["max_abs_err"] = max(r["err"] for r in k1b_rows + k1b_edge + fp16_rows.get("k1b", []))
         kernels.append(entry)
     log(f"kernel times are per image at the main-path shapes (bfloat16; K1 summed over its "
         f"three poolers); launches over phase 4's {per_image} main-path images, phase 8's training "
-        f"steps, phase 10's serving and training and phase 11's distributed training and serving, on {card}")
+        f"steps, phase 10's serving and training, phase 11's distributed training and serving and "
+        f"phase 12's fp16 serving and training, remat and chunked training; max_abs_err over every "
+        f"dtype's case (phase 12's fp16 ones included), on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,12 +4,13 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 // Element types a kernel is instantiated for (the `dtype` argument of the
 // C entry points).
-enum GlassDtype { kFloat32 = 0, kBFloat16 = 1, kUInt8 = 2 };
+enum GlassDtype { kFloat32 = 0, kBFloat16 = 1, kUInt8 = 2, kFloat16 = 3 };
 
 // The four bilinear taps of one sample point on an H x W map: element
 // offsets (row-major y * W + x) and weights already divided by the bin's

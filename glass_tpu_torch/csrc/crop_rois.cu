@@ -7,7 +7,7 @@
 // with normalize=(mean, std), glass_rcnn.py recognizer_encode).
 //
 // Inputs:
-//   img    (H, W, 3) uint8, f32 or bf16, channels interleaved, at least two
+//   img    (H, W, 3) uint8, f32, bf16 or fp16, channels interleaved, at least two
 //          pixels, its start aligned to two elements
 //   rois   (R, 5) f32 (cx, cy, w, h, angle in degrees)
 //   sampling_ratio > 0: fixed g x g grid per output pixel; 0: adaptive
@@ -112,10 +112,12 @@ __device__ __forceinline__ float load_elem(const uint8_t* p) { return (float)__l
 __device__ __forceinline__ float load_elem(const __nv_bfloat16* p) {
   return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
 }
+__device__ __forceinline__ float load_elem(const __half* p) { return __half2float(__ldg(p)); }
 __device__ __forceinline__ float load_elem(const float* p) { return __ldg(p); }
 
 __device__ __forceinline__ void store_elem(float v, float* o) { *o = v; }
 __device__ __forceinline__ void store_elem(float v, __nv_bfloat16* o) { *o = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store_elem(float v, __half* o) { *o = __float2half_rn(v); }
 
 // Two adjacent elements at an even element offset, as f32.
 __device__ __forceinline__ void load_pair(const uint8_t* p, float& a, float& b) {
@@ -127,6 +129,11 @@ __device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& a, floa
   const unsigned w = __ldg(reinterpret_cast<const unsigned*>(p));
   a = __uint_as_float(w << 16);
   b = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void load_pair(const __half* p, float& a, float& b) {
+  const float2 v = __half22float2(__ldg(reinterpret_cast<const __half2*>(p)));
+  a = v.x;
+  b = v.y;
 }
 __device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
   const float2 v = __ldg(reinterpret_cast<const float2*>(p));
@@ -344,6 +351,9 @@ int launch_crop(const void* img, int dtype, int H, int W, const float* rois, int
     launch_any<__nv_bfloat16, __nv_bfloat16>(sampling_ratio, blocks, threads, s, img, H, W, rois,
                                              max_sampling_ratio, OH, OW, 0, mean, stdv,
                                              rows_per_block, out);
+  } else if (dtype == kFloat16) {
+    launch_any<__half, __half>(sampling_ratio, blocks, threads, s, img, H, W, rois,
+                               max_sampling_ratio, OH, OW, 0, mean, stdv, rows_per_block, out);
   } else {
     return (int)cudaErrorInvalidValue;
   }

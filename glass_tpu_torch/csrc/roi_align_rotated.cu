@@ -8,15 +8,17 @@
 // multilevel_roi_align_rotated_packed).
 //
 // Inputs:
-//   feat        (sum_l H_l * W_l, C) level maps concatenated row-wise, f32 or bf16;
-//               C a multiple of the 16-byte vector (4 f32, 8 bf16), 16-byte aligned
+//   feat        (sum_l H_l * W_l, C) level maps concatenated row-wise, f32, bf16
+//               or fp16; C a multiple of the 16-byte vector (4 f32, 8 bf16 or
+//               fp16), 16-byte aligned
 //   rois        (R, 5) f32 (cx, cy, w, h, angle in degrees), image coordinates
 //   level_meta  (L, 4) f32 rows (spatial scale, H, W, row offset)
 //   levels      (R,) int32 level of each roi
 //   grid        (R, 2) int32 sampling grid (g_h, g_w) of each roi; the
 //               wrapper resolves fixed, adaptive-capped and bulk/large-roi
 //               budget grids into this table, so one launch serves them all
-//   out         (R, PH, PW, C) in the feature dtype, f32 accumulation
+//   out         (R, PH, PW, C) in the feature dtype, f32 accumulation rounded
+//               once (__float2bfloat16_rn / __float2half_rn, torch's rounding)
 //
 // What bounds it on the H100 (device times: chip_smoke.py phase 2 and
 // glass_tpu_torch/study/kernel_variants.py).  The first form (one
@@ -74,7 +76,8 @@ struct RoiFrame {
   long long base;
 };
 
-// The element e of a 16-byte vector of T, as f32.
+// The element e of a 16-byte vector of T, as f32 (8 channels of a 2-byte
+// type: bf16 by a shift, fp16 by the conversion instruction).
 template <typename T> __device__ __forceinline__ float vec_elem(const uint4& q, int e);
 template <> __device__ __forceinline__ float vec_elem<float>(const uint4& q, int e) {
   const unsigned w = e == 0 ? q.x : e == 1 ? q.y : e == 2 ? q.z : q.w;
@@ -84,6 +87,12 @@ template <> __device__ __forceinline__ float vec_elem<__nv_bfloat16>(const uint4
   const int k = e >> 1;
   const unsigned w = k == 0 ? q.x : k == 1 ? q.y : k == 2 ? q.z : q.w;
   return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+
+template <> __device__ __forceinline__ float vec_elem<__half>(const uint4& q, int e) {
+  const int k = e >> 1;
+  const unsigned w = k == 0 ? q.x : k == 1 ? q.y : k == 2 ? q.z : q.w;
+  return __half2float(__ushort_as_half((unsigned short)((e & 1) ? (w >> 16) : (w & 0xffffu))));
 }
 
 template <typename T> __device__ __forceinline__ uint4 pack_vec(const float* v);
@@ -97,6 +106,16 @@ template <> __device__ __forceinline__ uint4 pack_vec<__nv_bfloat16>(const float
   for (int k = 0; k < 4; ++k) {
     const unsigned lo = __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * k]));
     const unsigned hi = __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * k + 1]));
+    w[k] = lo | (hi << 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+template <> __device__ __forceinline__ uint4 pack_vec<__half>(const float* v) {
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const unsigned lo = __half_as_ushort(__float2half_rn(v[2 * k]));
+    const unsigned hi = __half_as_ushort(__float2half_rn(v[2 * k + 1]));
     w[k] = lo | (hi << 16);
   }
   return make_uint4(w[0], w[1], w[2], w[3]);
@@ -314,6 +333,10 @@ int launch_roi_align(const void* feat, int dtype, int C, const float* rois,
     roi_align_rotated_kernel<__nv_bfloat16><<<blocks, kWarps * 32, 0, s>>>(
         (const __nv_bfloat16*)feat, C, rois, level_meta, levels, grid, PH, PW, tile_h, tile_w,
         (__nv_bfloat16*)out);
+  } else if (dtype == kFloat16 && C % 8 == 0) {
+    roi_align_rotated_kernel<__half><<<blocks, kWarps * 32, 0, s>>>(
+        (const __half*)feat, C, rois, level_meta, levels, grid, PH, PW, tile_h, tile_w,
+        (__half*)out);
   } else {
     return (int)cudaErrorInvalidValue;
   }

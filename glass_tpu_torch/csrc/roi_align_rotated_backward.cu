@@ -9,11 +9,11 @@
 // ROIAlignRotated_backward.  The rois carry no gradient, as in detectron2.
 //
 // Inputs:
-//   grad_out    (R, PH, PW, C) upstream gradient, f32 or bf16
+//   grad_out    (R, PH, PW, C) upstream gradient, f32, bf16 or fp16
 //   rois, level_meta, levels, grid: as K1 (roi_align_rotated.cu)
 //   acc         (sum_l H_l * W_l, C) f32 accumulator: the output itself
 //               when it is f32, else scratch; never zeroed as a whole
-//   out         (sum_l H_l * W_l, C) the gradient, f32 or bf16, every row
+//   out         (sum_l H_l * W_l, C) the gradient, f32, bf16 or fp16, every row
 //               written once
 //   flags       one int a unit of kUnitRows packed rows, zero on entry and
 //               left zero on return
@@ -66,14 +66,14 @@
 //    touched rows exceed kMaxRounds rounds takes the direct path in the
 //    same launch (the per-tap form with 16-byte reductions: one a tap and 4
 //    channels) and is counted in stats[0].  A block holds 53 KB (bf16):
-//    four an SM, with the carveout set to all shared memory.  The
+//    four an SM (fp16 the same), with the carveout set to all shared memory.  The
 //    accumulation is bound by shared-memory bandwidth (a read and a write
 //    of 4 bytes a merged tap and channel).  The study's first form (shared
 //    atomics into a tile of all footprint rows x 32 channels, the chunks of
 //    a tile in turn) ran slower than the per-tap form.
 // 3. finish_kernel, one block per kFinishUnits units: writes every row of
-//    `out` once, rounded from `acc` with __float2bfloat16_rn (torch's
-//    rounding) where its unit is marked and zero where it is not (f32:
+//    `out` once, rounded from `acc` with __float2bfloat16_rn or
+//    __float2half_rn (torch's rounding) where its unit is marked and zero where it is not (f32:
 //    marked rows are already in place), and clears the flags.
 // K1b's sums are not bit-equal run to run: the shared and global atomics
 // add in another order each run (phase 7's tolerance is the bound of two
@@ -244,6 +244,7 @@ __device__ __forceinline__ Footprint tile_footprint(const RoiFrame& fr, const Un
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 // ---------------------------------------------------------------------------
 // 1. mark touched units, zero them in acc
@@ -331,6 +332,12 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const uint2 q = *reinterpret_cast<const uint2*>(p);
   return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
                      __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&q.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&q.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // kVec consecutive f32 of shared memory (one 4-, 8- or 16-byte access).
@@ -634,6 +641,14 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
          ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
 }
+// The same in fp16 (values beyond 65504 round to inf, as torch's cast).
+__device__ __forceinline__ unsigned pack_pair(float lo, float hi, __nv_bfloat16*) {
+  return pack_bf16(lo, hi);
+}
+__device__ __forceinline__ unsigned pack_pair(float lo, float hi, __half*) {
+  return (unsigned)__half_as_ushort(__float2half_rn(lo)) |
+         ((unsigned)__half_as_ushort(__float2half_rn(hi)) << 16);
+}
 
 // kMarked false (a study variant): `acc` was zeroed whole, every unit is
 // read.
@@ -666,8 +681,8 @@ finish_kernel(const float* acc, TOut* out, int C, long long n_rows, int* __restr
       if (m) {
         const float4 a = *reinterpret_cast<const float4*>(acc + e);
         const float4 b = *reinterpret_cast<const float4*>(acc + e + 4);
-        v = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
-                       pack_bf16(b.z, b.w));
+        v = make_uint4(pack_pair(a.x, a.y, out), pack_pair(a.z, a.w, out),
+                       pack_pair(b.x, b.y, out), pack_pair(b.z, b.w, out));
       }
       *reinterpret_cast<uint4*>(out + e) = v;
     }
@@ -715,6 +730,7 @@ int launch_scatter(const Args& a, const Plan& p, cudaStream_t s) {
 template <int kVec, bool kVecFlush>
 int launch_scatter_any(const Args& a, const Plan& p, cudaStream_t s) {
   if (a.dtype == kFloat32) return launch_scatter<float, kVec, kVecFlush>(a, p, s);
+  if (a.dtype == kFloat16) return launch_scatter<__half, kVec, kVecFlush>(a, p, s);
   return launch_scatter<__nv_bfloat16, kVec, kVecFlush>(a, p, s);
 }
 
@@ -726,6 +742,9 @@ int launch_finish(const Args& a, cudaStream_t s) {
   if (a.out_dtype == kFloat32) {
     finish_kernel<float, kMarked><<<blocks, kThreads, 0, s>>>(a.acc, static_cast<float*>(a.out),
                                                               a.C, a.n_rows, a.flags);
+  } else if (a.out_dtype == kFloat16) {
+    finish_kernel<__half, kMarked><<<blocks, kThreads, 0, s>>>(
+        a.acc, static_cast<__half*>(a.out), a.C, a.n_rows, a.flags);
   } else {
     finish_kernel<__nv_bfloat16, kMarked><<<blocks, kThreads, 0, s>>>(
         a.acc, static_cast<__nv_bfloat16*>(a.out), a.C, a.n_rows, a.flags);
@@ -738,11 +757,10 @@ int check(const Args& a, const Plan& p, int smem_bytes) {
       p.tile_h * p.tile_w > kMaxTileBins || p.cap_rows <= 0 || p.cap_rows > 32767 ||
       p.cap_slots <= 0)
     return (int)cudaErrorInvalidValue;
-  if ((a.dtype != kFloat32 && a.dtype != kBFloat16) ||
-      (a.out_dtype != kFloat32 && a.out_dtype != kBFloat16))
-    return (int)cudaErrorInvalidValue;
-  // 16-byte vectors: 4 f32 channels, 8 bf16
-  if (a.C % (a.dtype == kBFloat16 || a.out_dtype == kBFloat16 ? 8 : 4) != 0 || a.n_rows < 0)
+  auto known = [](int d) { return d == kFloat32 || d == kBFloat16 || d == kFloat16; };
+  if (!known(a.dtype) || !known(a.out_dtype)) return (int)cudaErrorInvalidValue;
+  // 16-byte vectors: 4 f32 channels, 8 bf16 or fp16
+  if (a.C % (a.dtype != kFloat32 || a.out_dtype != kFloat32 ? 8 : 4) != 0 || a.n_rows < 0)
     return (int)cudaErrorInvalidValue;
   if (a.out_dtype == kFloat32 && a.out != a.acc) return (int)cudaErrorInvalidValue;
   if (smem_bytes > 227 * 1024) return (int)cudaErrorInvalidValue;

@@ -1,13 +1,17 @@
 """Single-image demo of the port: ``python -m glass_tpu_torch.demo``.
 
 Counterpart of ``tools/demo.py``: loads a config (and optionally a
-detectron2-named ``.pth``), spots text in one image on the GPU, prints the
-words and writes the image with the word polygons drawn on it.
+detectron2-named ``.pth``), spots text in one image on the GPU (``--device
+cpu`` on the CPU), prints the words and writes a visualization with the
+port's copy of glass_tpu's visualizer: ``--output`` ending in ``.html`` is
+the interactive hover page (transcriptions, text and character scores),
+anything else the matplotlib figure.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import cv2
 import numpy as np
@@ -26,6 +30,7 @@ def main(argv=None):
 
     from .config import get_cfg
     from .inference import GlassRunner
+    from .utils.visualizer import visualize, visualize_html
 
     cfg = get_cfg(args.config, args.opts)
     runner = GlassRunner(model_path=args.model, cfg=cfg, device=args.device,
@@ -34,20 +39,16 @@ def main(argv=None):
     if image is None:
         raise SystemExit(f"cannot read image {args.image}")
     preds = runner(image)
-    texts, scores, _ = runner.decode_texts(preds) if len(preds) else ([], [], [])
-    boxes = np.asarray(preds.pred_boxes) if len(preds) else np.zeros((0, 5))
+    texts, scores, char_scores = runner.decode_texts(preds) if len(preds) else ([], [], [])
     print(f"{len(preds)} words:")
-    for t, s, box in zip(texts, scores, boxes):
+    for t, s, box in zip(texts, scores, np.asarray(preds.pred_boxes) if len(preds) else []):
         print(f"  {t!r}  score={s:.3f}  box={np.round(box, 1).tolist()}")
 
-    vis = image.copy()
-    polygons = preds.pred_polygons if len(preds) and preds.has("pred_polygons") else []
-    for poly, text in zip(polygons, texts):
-        pts = np.round(np.asarray(poly)).astype(np.int32).reshape(-1, 1, 2)
-        cv2.polylines(vis, [pts], True, (0, 255, 0), 2)
-        cv2.putText(vis, text, tuple(int(v) for v in pts[0, 0]), cv2.FONT_HERSHEY_SIMPLEX,
-                    0.6, (0, 0, 255), 1)
-    cv2.imwrite(args.output, vis)
+    if args.output.endswith(".html"):
+        visualize_html(image[:, :, ::-1], preds, texts, text_scores=scores, char_scores=char_scores,
+                       save_path=args.output, title=os.path.basename(args.image))
+    else:
+        visualize(image[:, :, ::-1], preds, texts, scores, save_path=args.output)
     print(f"visualization written to {args.output}")
 
 

@@ -225,18 +225,14 @@ class GlassArch:
         return _DTYPES[self.compute_dtype]
 
 
-def _check_ported(arch: GlassArch, train: bool = False) -> None:
-    """Options of later slices fail loudly instead of running a different
-    model; ``train`` adds the options the training path does not port."""
-    if train and arch.remat_backbone:
-        raise NotImplementedError(
-            "TPU.REMAT_BACKBONE is not ported to glass_tpu_torch yet "
-            "(the training-options slice: backbone rematerialization)"
-        )
-    if arch.compute_dtype not in ("float32", "bfloat16"):
-        raise NotImplementedError(
-            f"TPU.COMPUTE_DTYPE={arch.compute_dtype!r} is not ported to glass_tpu_torch yet "
-            "(supported: float32, bfloat16); the float16 slice of ROADMAP.md ports it"
+def _check_ported(arch: GlassArch) -> None:
+    """The model options the port runs, in serving and in training: every
+    ``TPU.COMPUTE_DTYPE`` glass_tpu takes (float32, bfloat16, float16),
+    with or without ``TPU.REMAT_BACKBONE``.  Any other compute dtype fails
+    here rather than deep inside the model."""
+    if arch.compute_dtype not in _DTYPES:
+        raise ValueError(
+            f"TPU.COMPUTE_DTYPE={arch.compute_dtype!r}: expected one of {sorted(_DTYPES)}"
         )
 
 

@@ -6,10 +6,15 @@ map's ``permute(0, 2, 3, 1)`` is the contiguous NHWC map the poolers read);
 weights keep PyTorch's layouts (conv OIHW, linear (out, in), recurrent
 weights gate-packed).  As in glass_tpu, parameters stay float32 and each
 op casts its weights to the activation dtype, so ``TPU.COMPUTE_DTYPE``
-bfloat16 runs the convolutions and products in bfloat16.
+bfloat16 or float16 runs the convolutions, products and recurrences in that
+dtype; batch-norm statistics are taken in f32 (``batch_norm``,
+``batch_norm_train``), and losses read f32 logits.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -59,13 +64,31 @@ def batch_norm(x, weight, bias, running_mean, running_var, eps: float = 1e-5):
     return x * scale.reshape(shape) + shift.reshape(shape)
 
 
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The recomputation of a checkpointed forward (``TPU.REMAT_BACKBONE``):
+    inside it, training-mode batch norm leaves the running statistics as
+    the first pass left them, so each step updates them once, as
+    glass_tpu's rematerialized backbone returns its BN updates once.  Per
+    thread: the backward may recompute on autograd's own."""
+    prev = getattr(_recompute, "on", False)
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = prev
+
+
 def batch_norm_train(x, weight, bias, running_mean, running_var, eps: float = 1e-5,
                      momentum: float = 0.1, group=None):
     """Training-mode BatchNorm over dim 1 with glass_tpu's arithmetic: mean
     and mean of squares in f32 over the whole batch (padding included), the
     biased variance to normalize, ``(x - mean) * inv + b`` in the activation
     dtype, and the running statistics EMA-updated in place with the
-    *unbiased* variance.
+    *unbiased* variance (not while ``recomputing``).
 
     With a process ``group`` (SyncBN, glass_tpu's ``axis_name``), the mean
     and the mean of squares are each averaged over the ranks, every rank
@@ -85,6 +108,8 @@ def batch_norm_train(x, weight, bias, running_mean, running_var, eps: float = 1e
     out = (x - mean.to(x.dtype).reshape(shape)) * inv.to(x.dtype).reshape(shape) \
         + bias.to(x.dtype).reshape(shape)
     n = x.numel() // x.shape[1]
+    if getattr(_recompute, "on", False):
+        return out
     with torch.no_grad():
         unbiased = var * n / max(n - 1, 1)
         running_mean.copy_((1 - momentum) * running_mean + momentum * mean)

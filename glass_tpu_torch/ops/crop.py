@@ -8,8 +8,8 @@ writing ``(R, OH, OW, 3)`` crops.
 
 * uint8 input, optionally with ``normalize=(mean, std)``: the crop of the
   normalized image, computed from the raw pixels; output f32.
-* f32 or bf16 input (already normalized): output in the input dtype, f32
-  accumulation.
+* f32, bf16 or fp16 input (already normalized): output in the input
+  dtype, f32 accumulation rounded once.
 * ``sampling_ratio`` 1 or 2 is a fixed grid; 0 is adaptive
   ``ceil(extent / out)`` per axis, capped at ``max_sampling_ratio``.
 
@@ -28,7 +28,7 @@ from . import _cuda
 from .roi_align_rotated import adaptive_grid, fixed_grid, sample_grid_plain
 
 KERNEL = "crop_rois"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2, torch.float16: 3}
 
 
 def _output_dtype(image: torch.Tensor) -> torch.dtype:
@@ -41,7 +41,7 @@ def _check(image, rois, normalize):
     if rois.dim() != 2 or rois.shape[1] != 5:
         raise ValueError(f"rois must be (R, 5), got {tuple(rois.shape)}")
     if image.dtype not in _DTYPES:
-        raise TypeError(f"image must be uint8, float32 or bfloat16, got {image.dtype}")
+        raise TypeError(f"image must be uint8, float32, bfloat16 or float16, got {image.dtype}")
     if normalize is not None and image.dtype != torch.uint8:
         raise NotImplementedError("the normalize fold requires a uint8 image")
     if image.device != rois.device:

@@ -26,7 +26,7 @@ passes that ``roi_align_rotated_adaptive`` documents.
 On a CUDA tensor the wrapper launches the kernel (``csrc/
 roi_align_rotated.cu``) or raises; on a CPU tensor it runs the plain
 version, which repeats the kernel's arithmetic in the same order.  The
-kernel takes C a multiple of its 16-byte vector (4 f32, 8 bf16 channels)
+kernel takes C a multiple of its 16-byte vector (4 f32, 8 bf16 or fp16 channels)
 and 16-byte aligned features; the wrapper raises on anything else.
 
 The pooler's feature gradient is kernel K1b (``csrc/roi_align_rotated_
@@ -49,7 +49,7 @@ from . import _cuda
 
 KERNEL = "roi_align_rotated"
 BACKWARD_KERNEL = "roi_align_rotated_backward"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
 VECTOR_BYTES = 16
 # K1b's plan (csrc/roi_align_rotated_backward.cu): the map rows a bin
 # tile's footprint may span (its shared index map), the rounding slack
@@ -158,7 +158,7 @@ def _check(flat, meta, rois, levels, grid):
     if levels.shape != (r,) or grid.shape != (r, 2):
         raise ValueError("levels must be (R,) and grid (R, 2)")
     if flat.dtype not in _DTYPES:
-        raise TypeError(f"features must be float32 or bfloat16, got {flat.dtype}")
+        raise TypeError(f"features must be float32, bfloat16 or float16, got {flat.dtype}")
     devs = {t.device for t in (flat, meta, rois, levels, grid)}
     if len(devs) != 1:
         raise ValueError(f"all inputs must lie on one device, got {devs}")
@@ -290,7 +290,7 @@ def roi_align_rotated_packed_backward(grad_out, meta, rois, levels, grid, n_rows
     tile's footprint (0: the kernel drops such a tap).  Reading it syncs
     with the host; the kernels do not."""
     if out_dtype not in _DTYPES:
-        raise TypeError(f"the output must be float32 or bfloat16, got {out_dtype}")
+        raise TypeError(f"the output must be float32, bfloat16 or float16, got {out_dtype}")
     if grad_out.device.type == "cpu":
         grad = roi_align_rotated_packed_backward_plain(grad_out, meta, rois, levels, grid, n_rows)
         grad = grad.to(out_dtype)
@@ -302,7 +302,7 @@ def roi_align_rotated_packed_backward(grad_out, meta, rois, levels, grid, n_rows
     if grad_out.device.type != "cuda":
         raise ValueError(f"unsupported device {grad_out.device}")
     if grad_out.dtype not in _DTYPES:
-        raise TypeError(f"the gradient must be float32 or bfloat16, got {grad_out.dtype}")
+        raise TypeError(f"the gradient must be float32, bfloat16 or float16, got {grad_out.dtype}")
     r, ph, pw, c = grad_out.shape
     vec = max(vector_width(grad_out.dtype), vector_width(out_dtype))
     if c % vec:

@@ -26,10 +26,14 @@ The step is held against glass_tpu explicitly, not through
 the training forward calls the model's submodules
 (``train.train_step.glass_train_forward``), not ``model.forward``.  A
 plain all-reduce after the backward is glass_tpu's ``pmean(grads)``;
-overlapping it with the backward is later work.  glass_tpu's
-``make_parallel_train_loop``/``make_parallel_train_scan`` (``TPU.TRAIN_LOOP_STEPS``)
-belong to the training-options slice; ``train.train_step.check_trainable``
-refuses that option.
+overlapping it with the backward is later work.
+
+``make_parallel_train_scan`` is glass_tpu's K steps over K batches, the
+Trainer's chunk of ``TPU.TRAIN_LOOP_STEPS``: a host loop over the step that
+keeps the metrics on the device until it ends.  The step's own host syncs
+(NMS fixpoints, the matcher's ``nonzero``) stay, so the chunk is not yet
+one CUDA graph.  glass_tpu's ``make_parallel_train_loop`` (n steps on one
+batch) serves only its benchmarking tools, which are not ported.
 """
 
 from __future__ import annotations
@@ -307,6 +311,23 @@ def make_parallel_train_step(group=None) -> Callable:
         return metrics
 
     return step
+
+
+def make_parallel_train_scan(step: Callable) -> Callable:
+    """glass_tpu's ``make_parallel_train_scan``: ``scan(model, optimizer,
+    tcfg, batches, priorities, iterations)`` runs one ``step`` (the
+    signature of ``train.train_step.train_step``, or a
+    ``make_parallel_train_step`` result) per batch of ``batches``, step j at
+    ``iterations[j]`` with ``priorities[j]`` (the caller folds the global
+    iteration in, as glass_tpu folds it into each step's key, so the stream
+    is the one-step loop's).  Returns every metric stacked (K,) on the
+    device: nothing is read back until the chunk ends."""
+
+    def scan(model, optimizer, tcfg, batches, priorities, iterations) -> Dict[str, torch.Tensor]:
+        ms = [step(model, optimizer, tcfg, b, p, it) for b, p, it in zip(batches, priorities, iterations)]
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return scan
 
 
 def broadcast_state_(module: torch.nn.Module, src: int = 0, group=None) -> None:

@@ -69,6 +69,13 @@ def _quad_intersection_areas_batch(P: np.ndarray, Q: np.ndarray) -> np.ndarray:
     ``_convex_quad_intersection_area``; a convex quad clipped by 4
     half-planes has at most 8 vertices, so a fixed capacity-8 buffer with a
     per-pass compaction keeps everything dense numpy.
+
+    Rounding can break that bound: where the quads share an edge (the same
+    rectangle given as (w, h, a) and (h, w, a + 90)) the signs of vertices
+    on the clip line alternate and a pass keeps more than 8 vertices, which
+    glass_tpu's copy of this function indexes past its buffer (an
+    IndexError, met with fp16 serving outputs on the card).  Those pairs
+    take the scalar clip, which has no buffer.
     """
     k = len(P)
     if k == 0:
@@ -78,6 +85,7 @@ def _quad_intersection_areas_batch(P: np.ndarray, Q: np.ndarray) -> np.ndarray:
     verts[:, :4] = P
     nv = np.full(k, 4, np.int64)
     slots = np.arange(cap)
+    overflow = np.zeros(k, bool)
 
     for i in range(4):
         a = Q[:, i]                      # (K, 2)
@@ -106,14 +114,18 @@ def _quad_intersection_areas_batch(P: np.ndarray, Q: np.ndarray) -> np.ndarray:
         order = np.argsort(~keep, axis=1, kind="stable")
         verts = np.take_along_axis(out, order[..., None], axis=1)[:, :cap]
         nv = keep.sum(axis=1)
+        overflow |= nv > cap
+        nv = np.minimum(nv, cap)
 
     valid = slots[None, :] < nv[:, None]
     v = np.where(valid[..., None], verts, 0.0)
     nxt_idx = (slots[None, :] + 1) % np.maximum(nv[:, None], 1)
     nxt = np.take_along_axis(v, nxt_idx[..., None], axis=1)
     cross = v[..., 0] * nxt[..., 1] - nxt[..., 0] * v[..., 1]
-    area = 0.5 * np.abs(np.where(valid, cross, 0.0).sum(axis=1))
-    return np.where(nv >= 3, area, 0.0)
+    area = np.where(nv >= 3, 0.5 * np.abs(np.where(valid, cross, 0.0).sum(axis=1)), 0.0)
+    for r in np.nonzero(overflow)[0]:
+        area[r] = _convex_quad_intersection_area(P[r], Q[r])
+    return area
 
 
 def pairwise_iou_rotated_np(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarray:

@@ -27,13 +27,16 @@ image, shape)``: by default an explicit ``torch.Generator`` seeded from
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from ..models.fpn import FPN_LEVEL_STRIDES
+from ..models import layers as L
 from ..models.glass_rcnn import (
     GlassArch,
     GlassRCNN,
@@ -213,14 +216,16 @@ def glass_train_forward(model: GlassRCNN, tcfg: TrainConfig, batch: dict,
     ``glass.recognizer``, ``glass.mask_head``.
     """
     arch = model.arch
-    _check_ported(arch, train=True)
     images = batch["images"]
     b = images.shape[0]
     gt_boxes, gt_valid = batch["gt_boxes"], batch["gt_valid"]
     content_hw = [(int(h), int(w)) for h, w in batch["content_hw"]]
     with record_function("glass.backbone"):
         norm = preprocess(model, images)
-        feats = backbone_features(model, norm)
+        if arch.remat_backbone:
+            feats = remat_backbone_features(model, norm)
+        else:
+            feats = backbone_features(model, norm)
 
     # ---- RPN ------------------------------------------------------------
     with record_function("glass.rpn_loss"):
@@ -297,6 +302,18 @@ def glass_train_forward(model: GlassRCNN, tcfg: TrainConfig, batch: dict,
 
     total = sum(v for k, v in losses.items() if k.startswith("loss"))
     return total, losses
+
+
+def remat_backbone_features(model: GlassRCNN, norm: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``TPU.REMAT_BACKBONE``: the backbone under activation checkpointing
+    (glass_tpu's ``jax.checkpoint`` of it, ``glass_tpu/train/train_step.py``
+    :295-305).  Its activations are dropped after the forward and
+    recomputed in the backward; the recomputation leaves the BN running
+    statistics alone (``layers.recomputing``), so the step updates them
+    once.  Under SyncBN the recomputation issues the statistics'
+    all-reduces again, on every rank alike."""
+    return checkpoint(backbone_features, model, norm, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), L.recomputing()))
 
 
 def _label_sample(arch, tcfg, boxes_b, valid_b, gt_b, gt_v, gt_cls, priorities, image):
@@ -487,14 +504,9 @@ def batch_to_device(batch: dict, device, non_blocking: bool = True) -> dict:
 
 
 def check_trainable(cfg) -> None:
-    """Training options this port does not run yet raise, naming the slice
-    that will port them: ``TPU.TRAIN_LOOP_STEPS > 1`` here, the
-    model's (``TPU.REMAT_BACKBONE``, float16) in ``_check_ported``."""
-    steps = int(getattr(cfg.TPU, "TRAIN_LOOP_STEPS", 1) or 1)
-    if steps > 1:
-        raise NotImplementedError(
-            f"TPU.TRAIN_LOOP_STEPS={steps} (the in-graph multi-step loop) is not ported to "
-            "glass_tpu_torch yet (the training-options slice)"
-        )
-    _check_ported(GlassArch.from_config(cfg), train=True)
+    """The config's model options, checked before a trainer builds
+    anything (``_check_ported``).  Every training option of glass_tpu
+    runs: float16, ``TPU.REMAT_BACKBONE`` and ``TPU.TRAIN_LOOP_STEPS``
+    (the chunks of ``trainer.Trainer.train``)."""
+    _check_ported(GlassArch.from_config(cfg))
 

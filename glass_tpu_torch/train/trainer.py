@@ -15,12 +15,14 @@ the gradients.  Rank 0's initial state is broadcast; rank 0 alone writes
 of the test set and the evaluator gathers them.  PreciseBN averages each
 rank's own batches, as glass_tpu's does per process.
 
-Not ported yet, and refused: ``TPU.TRAIN_LOOP_STEPS > 1``,
-``TPU.REMAT_BACKBONE`` (the training-options slice).
+``TPU.TRAIN_LOOP_STEPS`` = K runs the loop in chunks of up to K steps
+(glass_tpu's in-graph loop; K = 1 is its plain loop): step for step alike
+for every K.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import signal
@@ -278,51 +280,101 @@ class Trainer:
         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
         return bool(flag.item())
 
+    @staticmethod
+    def chunk_len(
+        it: int,
+        max_iter: int,
+        loop_k: int,
+        ckpt_period: int,
+        eval_period: int,
+        vis_period: int,
+    ) -> int:
+        """Iterations to run in the next chunk starting at ``it``.
+
+        Chunk ends land exactly on the K=1 loop's side-effect boundaries:
+        checkpoint/eval fire AFTER executing iteration m*p (chunk must
+        include it), visualization at the START of iteration m*v (chunk
+        must end just before it).  Pure, and glass_tpu's own function
+        (``glass_tpu/train/trainer.py``), held to it over its test grid
+        (tests/test_torch_train_loop.py)."""
+        nxt = max_iter
+        for p in (ckpt_period, eval_period):
+            if p:
+                nxt = min(nxt, (max(it - 1, 0) // p + 1) * p + 1)
+        if vis_period:
+            nxt = min(nxt, (it // vis_period + 1) * vis_period)
+        return max(1, min(loop_k, nxt - it))
+
     def train(self, max_iter: Optional[int] = None):
+        """The loop, in chunks of up to ``TPU.TRAIN_LOOP_STEPS`` = K steps
+        (glass_tpu's ``_train_chunked``; K = 1 is one step a chunk, its
+        plain loop).  A chunk's batches are loaded and uploaded, then its
+        steps run through ``mesh.make_parallel_train_scan`` with the
+        metrics left on the device.  Each step's priorities fold its global
+        iteration, so every K trains step for step alike.  Chunks end on the
+        side effects' boundaries (``chunk_len``): the VIS dump at a chunk's
+        first iteration, the checkpoint, the evaluation and the interrupt
+        check after its last.  The scalars and a log line go out at
+        ``it % 20 == 0``, the chunk's metrics read back once when it holds
+        such an iteration.  glass_tpu groups a chunk's same-shape batches
+        into one static program; eager PyTorch takes any shape, so a chunk
+        is one scan, and not yet one CUDA graph."""
         max_iter = max_iter or self.cfg.SOLVER.MAX_ITER
         loader = self.build_train_loader()
         self._install_signal_handler()
         self._interrupted = False
         ckpt_period = self.cfg.SOLVER.CHECKPOINT_PERIOD
         eval_period = self.cfg.TEST.EVAL_PERIOD
+        loop_k = max(1, int(self.cfg.TPU.TRAIN_LOOP_STEPS))
         self.model.train()
+        scan = mesh.make_parallel_train_scan(functools.partial(train_step, group=self.group))
         t0 = time.time()
         data_wait = 0.0
-        for it in range(self.start_iter, max_iter):
+        it = self.start_iter
+        while it < max_iter:
+            chunk = self.chunk_len(it, max_iter, loop_k, ckpt_period, eval_period, self.cfg.VIS_PERIOD)
             td = time.time()
-            host_batch = self._next_batch(loader)
+            host_batches = [self._next_batch(loader) for _ in range(chunk)]
             data_wait += time.time() - td
-            self._maybe_visualize(it, host_batch)
-            batch = batch_to_device(host_batch, self.device)
-            metrics = train_step(self.model, self.optimizer, self.tcfg, batch,
-                                 Priorities(self.seed + 1, it, self.device, self.rank), it,
-                                 group=self.group)
-            self.storage.step(it)
-            if it % 20 == 0:
-                metrics = {k: float(v) for k, v in metrics.items()}
+            self._maybe_visualize(it, host_batches[0])
+            its = list(range(it, it + chunk))
+            stacked = scan(self.model, self.optimizer, self.tcfg,
+                           [batch_to_device(b, self.device) for b in host_batches],
+                           [Priorities(self.seed + 1, i, self.device, self.rank) for i in its], its)
+            values = None
+            for j, step_it in enumerate(its):
+                self.storage.step(step_it)
+                if step_it % 20:
+                    continue
+                if values is None:  # one read-back for the chunk
+                    names = list(stacked)
+                    values = torch.stack([stacked[k].to(torch.float64) for k in names]).cpu().tolist()
+                metrics = {k: v[j] for k, v in zip(names, values)}
                 for k, v in metrics.items():
                     self.storage.put_scalar(k, v)
-                lr = self.optimizer.schedule(it)
+                lr = self.optimizer.schedule(step_it)
                 self.storage.put_scalar("lr", lr)
                 self.storage.put_scalar("data_time", data_wait)
                 logger.info(
-                    "iter %d  %s  lr %.5f  %.2f s/20it (data wait %.2f s)", it,
+                    "iter %d  %s  lr %.5f  %.2f s/20it (data wait %.2f s)", step_it,
                     "  ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()) if "/" not in k),
                     lr, time.time() - t0, data_wait,
                 )
                 t0 = time.time()
                 data_wait = 0.0
-            if ckpt_period and it > 0 and it % ckpt_period == 0:
-                self.save(it)
-            if eval_period and it > 0 and it % eval_period == 0:
+            it += chunk
+            last = it - 1
+            if ckpt_period and last > 0 and last % ckpt_period == 0:
+                self.save(last)
+            if eval_period and last > 0 and last % eval_period == 0:
                 try:
                     self.test()
                 except Exception as e:
                     logger.warning("periodic eval failed: %s", e)
             if self._any_interrupted():
-                self.save(it)
+                self.save(last)
                 self.storage.flush()
-                logger.warning("Exiting on signal at iteration %d", it)
+                logger.warning("Exiting on signal at iteration %d", last)
                 return
         if self._last_saved_iter != max_iter - 1 and max_iter > self.start_iter:
             self.save(max_iter - 1)

@@ -126,3 +126,24 @@ def test_top_k_tie_order_matches_lax_top_k():
     tv, ti = top_k(torch.from_numpy(x), 300)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_host_iou_of_coincident_quads_takes_the_scalar_clip():
+    """The same rectangle as (w, h, a) and (h, w, a + 90), met among fp16
+    serving outputs on the card: rounding on the shared edges makes the
+    vectorized clip keep more vertices than its buffer holds, and
+    glass_tpu's host geometry indexes past it; the port's copy sends such
+    pairs to the scalar clip, and the rest of the pairs equal glass_tpu's."""
+    from glass_tpu.postprocess import np_geometry as JG
+
+    from glass_tpu_torch.postprocess import np_geometry as TG
+
+    same = np.array([[977.80963, 415.10757, 856.4933, 382.90067, -44.504044],
+                     [977.80963, 415.10757, 382.90067, 856.4933, 45.495956]], np.float32)
+    with pytest.raises(IndexError):
+        JG.pairwise_iou_rotated_np(same[:1], same[1:])
+    np.testing.assert_allclose(TG.pairwise_iou_rotated_np(same[:1], same[1:]), [[1.0]], atol=1e-6)
+    rng = np.random.RandomState(0)
+    boxes = np.stack([rng.uniform(0, 60, 24), rng.uniform(0, 60, 24), rng.uniform(4, 40, 24),
+                      rng.uniform(4, 20, 24), rng.uniform(-90, 90, 24)], 1).astype(np.float32)
+    np.testing.assert_array_equal(TG.pairwise_iou_rotated_np(boxes, boxes), JG.pairwise_iou_rotated_np(boxes, boxes))

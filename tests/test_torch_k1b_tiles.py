@@ -191,19 +191,21 @@ def _case(seed=0, c=16):
     return g, meta, rois, levels, grid, n_rows
 
 
-@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
 def test_out_dtype_is_the_f32_gradient_rounded_once(grad_dtype):
     g, meta, rois, levels, grid, n_rows = _case()
     g = g.to(grad_dtype)
     f32 = ra.roi_align_rotated_packed_backward_plain(g, meta, rois, levels, grid, n_rows)
     default = ra.roi_align_rotated_packed_backward(g, meta, rois, levels, grid, n_rows)
     assert default.dtype == torch.float32 and torch.equal(default, f32)
-    bf16 = ra.roi_align_rotated_packed_backward(g, meta, rois, levels, grid, n_rows,
-                                                out_dtype=torch.bfloat16)
-    assert bf16.dtype == torch.bfloat16 and torch.equal(bf16, f32.to(torch.bfloat16))
+    for out_dtype in (torch.bfloat16, torch.float16):
+        low = ra.roi_align_rotated_packed_backward(g, meta, rois, levels, grid, n_rows,
+                                                   out_dtype=out_dtype)
+        assert low.dtype == out_dtype and torch.equal(low, f32.to(out_dtype))
     with pytest.raises(TypeError):
         ra.roi_align_rotated_packed_backward(g, meta, rois, levels, grid, n_rows,
-                                             out_dtype=torch.float16)
+                                             out_dtype=torch.float64)
 
 
 def test_stats_count_the_direct_tiles():

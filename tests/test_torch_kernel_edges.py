@@ -105,7 +105,8 @@ def test_k2_edge_cases_match_glass_tpu(n, width, out_hw, sampling_ratio, fold):
     np.testing.assert_allclose(got, want, atol=tol)
 
 
-@pytest.mark.parametrize("dtype,channels,width", [(torch.float32, 6, 4), (torch.bfloat16, 12, 8)])
+@pytest.mark.parametrize("dtype,channels,width", [(torch.float32, 6, 4), (torch.bfloat16, 12, 8),
+                                                  (torch.float16, 12, 8)])
 def test_k1_wrapper_raises_on_channels_the_kernel_does_not_take(dtype, channels, width):
     """C must be a multiple of the kernel's 16-byte vector; the check runs
     before any launch, so it shows on a meta tensor."""

@@ -466,16 +466,25 @@ def test_relu_splits_the_gradient_at_zero_as_glass_tpu():
     (["TPU.REMAT_BACKBONE", "True"], "REMAT_BACKBONE"),
 ])
 def test_unported_training_options_raise(opts, match):
+    """Both options are ported (they raised until then): the trainer's
+    check accepts each, and it reaches the code that runs it
+    (tests/test_torch_remat.py and tests/test_torch_train_loop.py hold them
+    to glass_tpu)."""
+    from glass_tpu_torch.train.trainer import Trainer
+
     cfg = get_cfg(ICDAR15)
     cfg.merge_from_list(opts)
-    with pytest.raises(NotImplementedError, match=match):
-        check_trainable(cfg)
+    check_trainable(cfg)
+    if match == "REMAT_BACKBONE":
+        assert GlassArch.from_config(cfg).remat_backbone
+    else:
+        assert Trainer.chunk_len(0, 10, cfg.TPU.TRAIN_LOOP_STEPS, 0, 0, 0) == 2
 
 
 @pytest.mark.parametrize("kw", [dict(recognizer_decoder="CTC", vocab_size=96), dict(pooler_pad="FeatPadV2")])
 def test_ctc_and_featpad_training_raise(kw):
     """CTC and FeatPadV2 training are ported (they raised until then):
-    ``_check_ported(train=True)`` accepts them, and one step of the tiny
+    ``_check_ported`` accepts them, and one step of the tiny
     model on the CPU gives finite losses and gradients.
     tests/test_torch_variants_train.py holds the step to glass_tpu."""
     import sys
@@ -488,7 +497,7 @@ def test_ctc_and_featpad_training_raise(kw):
     from glass_tpu_torch.train.trainer import init_weights_
 
     arch = GlassArch(**ARCH_KW, **kw)
-    _check_ported(arch, train=True)
+    _check_ported(arch)
     model = init_weights_(GlassRCNN(arch), 0).train()
     batch = ctc_batch() if "recognizer_decoder" in kw else make_batch()
     tb = {k: (v if k == "content_hw" else torch.from_numpy(v)) for k, v in batch.items()}

@@ -167,13 +167,23 @@ def test_ctc_loss_feasible_words_match_torch_ctc_loss():
 
 
 def test_float16_still_raises_and_names_its_slice():
-    """float16 waits for its slice, in serving and in training."""
-    arch = dataclasses.replace(GlassArch(), compute_dtype="float16")
-    for train in (False, True):
-        with pytest.raises(NotImplementedError, match="float16 slice"):
-            _check_ported(arch, train=train)
-    cfg = get_cfg(ICDAR15, ["TPU.COMPUTE_DTYPE", "float16"])
-    with pytest.raises(NotImplementedError, match="float16 slice"):
-        check_trainable(cfg)
-    with pytest.raises(NotImplementedError, match="float16 slice"):
-        GlassRunner(cfg=cfg, device="cpu")
+    """float16 is ported (it raised, naming its slice, until then): the
+    model's check, the trainer's check and ``GlassRunner`` accept it, and
+    the runner serves a finite image in fp16; a compute dtype glass_tpu
+    does not take still fails.  tests/test_torch_float16.py holds fp16 to
+    glass_tpu."""
+    _check_ported(dataclasses.replace(GlassArch(), compute_dtype="float16"))
+    with pytest.raises(ValueError, match="COMPUTE_DTYPE"):
+        _check_ported(dataclasses.replace(GlassArch(), compute_dtype="float64"))
+    cfg = get_cfg(ICDAR15, ["TPU.COMPUTE_DTYPE", "float16", "INPUT.MIN_SIZE_TEST", "64",
+                            "INPUT.MAX_SIZE_TEST", "96", "TPU.IMAGE_BUCKETS", "[[96, 128]]",
+                            "MODEL.RPN.PRE_NMS_TOPK_TEST", "64", "MODEL.RPN.POST_NMS_TOPK_TEST", "16",
+                            "TEST.DETECTIONS_PER_IMAGE", "8", "MODEL.ROI_RECOGNIZER_HEAD.MAX_WORD_LENGTH", "4"])
+    check_trainable(cfg)
+    runner = GlassRunner(cfg=cfg, device="cpu")
+    assert runner.model.arch.torch_dtype == torch.float16
+    out = runner.run_model((np.random.RandomState(0).rand(90, 110, 3) * 255).astype(np.float32))
+    assert out["valid"].shape == (8,)
+    for k, v in out.items():
+        if isinstance(v, np.ndarray) and v.dtype.kind == "f":
+            assert np.isfinite(v.astype(np.float32)).all(), k

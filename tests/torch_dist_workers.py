@@ -166,3 +166,50 @@ def eval_worker(out, argv):
     r = mesh.rank()
     res = port_eval.main(["--output", os.path.join(out, f"r{r}")] + argv)
     torch.save(res, os.path.join(out, f"rank{r}.pt"))
+
+
+def syncbn_remat_worker(out, image, cotangent):
+    """A two-layer conv + SyncBN backbone (seeded, the same on every rank),
+    once plain and once through ``train_step.remat_backbone_features`` (the
+    checkpointed backbone), from the same state on this rank's image:
+    output, parameter gradients, running statistics and the all-reduces
+    each issued."""
+    from types import SimpleNamespace
+
+    from glass_tpu_torch.models.context import conv_norm
+    from glass_tpu_torch.models.glass_rcnn import backbone_features
+    from glass_tpu_torch.train.train_step import remat_backbone_features
+
+    class Tiny(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.a = conv_norm(3, 8, 3, 1, 1, relu=True)
+            self.b = conv_norm(8, 8, 3, 2, 1)
+
+        def forward(self, x):
+            return {"p2": self.b(self.a(x))}
+
+    r = mesh.rank()
+    torch.manual_seed(0)
+    state = Tiny().state_dict()
+    calls = [0]
+    inner = dist.all_reduce
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return inner(*a, **k)
+
+    dist.all_reduce = counted
+    res = {}
+    for name, fn in (("plain", backbone_features), ("remat", remat_backbone_features)):
+        model = SimpleNamespace(backbone=Tiny().train())
+        model.backbone.load_state_dict(state)
+        calls[0] = 0
+        with mesh.sync_batch_norm(model.backbone, dist.group.WORLD):
+            y = fn(model, torch.from_numpy(image[r]))["p2"]
+            (y * torch.from_numpy(cotangent[r])).sum().backward()
+        res[name] = dict(out=y.detach(), all_reduces=calls[0],
+                         grads={n: p.grad for n, p in model.backbone.named_parameters()},
+                         stats={k: v for k, v in model.backbone.state_dict().items() if "running_" in k})
+    dist.all_reduce = inner
+    torch.save(res, os.path.join(out, f"rank{r}.pt"))
