@@ -96,7 +96,7 @@ Phases:
  10. the model-family variants, at full width in bfloat16 from phase 4's
      weights (each option's own tensors seeded): FeatPadV2, the GC fusion
      types channel_mul and channel_concat, SimpleAttention, LocalOnly,
-     Conv1x1, CNN_V2 and CTC, each through ``GlassRunner.__call__`` on 2 of
+     Conv1x1, CNN_V2 and CTC, each through ``GlassRunner.__call__`` on 1 of
      phase 4's images after one warm-up (``__call__`` and ``run_model``
      medians, exactly 3 K1 and 1 K2 launches an image, finite outputs),
      and each option's recognizer in f32 on the card against the CPU from
@@ -161,6 +161,27 @@ Phases:
      the whole step above what the step starts with) beside the plain
      trainer's.  Phase 12's peaks count from what is allocated when each
      part starts, after the earlier trainers are let go.
+ 13. TPU.SERVE_BATCH_MODE="vmap", one batched program a batch: (a) K2 over
+     4 distinct 960x1600 images in one launch (``crop_rois_batched``)
+     against its plain twin at max |err| 0, in uint8 with the fold, f32,
+     bf16 and fp16 at sampling ratio 1, bf16 at 2 and 0, and an edge case;
+     bf16 equal to four one-image launches; timed beside grid_sample over
+     the batch; (b) on phase 6's eval set at batch 4, in f32 (TF32 off) and
+     bf16, vmap against map: staged on one batch (the batched detection and
+     heads fed the map path's own features and detections, against the
+     one-image stages; f32 at phase 5's staged tolerances; the decoder's
+     zeroed steps those of a break per image, and with a break forced in
+     one image; a witness, map's stages on the batch's own backbone
+     features) and end to end (``eval_batch_call`` in each mode,
+     detections paired by box; the counts held, and in f32 the shares of
+     pairs with close boxes and the same text); (c) the K1/K2 launches (3
+     and 1 a batch in vmap, 12 and 4 in map), the host syncs and the peak
+     memory of one batch in each mode; (d) ``eval_batch_call`` img/s of
+     both modes in f32 and bf16 with the model / fetch / host split, the
+     words, their lengths and the host merge's rows and rounds, and one
+     profiled batch of each (device busy share); (e) two
+     SERVE_DATA_PARALLEL replicas on the one card under vmap at b = 3 and
+     4, bit for bit one replica's vmap program on the same rows.
 
 Prints, on the last two lines, a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``, and copies everything it prints into
@@ -183,7 +204,9 @@ bf16_steps=2, serve_opts=[...small bucket...])``, and phase 12 (b)-(e) with
 ``phase_fp16_remat_loop(state_dict, images, out_dir, device="cpu",
 opts=[...small bucket...], train_opts=[...small shapes...], n_timed=2,
 steps=2, loop_iters=6, loop_k=3, loop_ckpt=2, n_images=3, hw=(96, 128),
-train_dtype="bfloat16")``; they take ``device`` for that alone.
+train_dtype="bfloat16")``, and phase 13 (b)-(e) with
+``phase_vmap(state_dict, out_dir, device="cpu", n_images=6, hw=(96, 128),
+opts=[...small bucket...])``; they take ``device`` for that alone.
 """
 
 from __future__ import annotations
@@ -210,7 +233,7 @@ BUCKET_HW = (960, 1600)
 STRIDES = (4, 8, 16, 32, 64)
 N_ROIS = 100
 N_IMAGES = 8      # distinct synthetic main-path images
-N_TIMED = 40      # timed main-path images, after 2 warm-up
+N_TIMED = 24      # timed main-path images, after 2 warm-up
 STAGES = ("glass.backbone", "glass.rpn", "glass.box_head", "glass.recognizer", "glass.mask_head")
 
 # K1 poolers on the main path: (name, output, sampling ratio, bulk grid, single level)
@@ -539,14 +562,19 @@ def k2_sample_grid(rois, h, w, out_hw):
 def k2_yardstick(image, rois):
     """Device time of torch.nn.functional.grid_sample (bilinear, zeros,
     align_corners=False) on the sampling-ratio-1 points of K2, in the
-    image's dtype or in f32 where that is refused.  Its border rule is not
-    detectron2's: a yardstick of time only, never called by the port."""
+    image's dtype or in f32 where that is refused: an (H, W, 3) image and
+    (R, 5) rois, or a batch, (B, H, W, 3) and (B, R, 5), in one call over
+    the (B, 3, H, W) batch with a (B, R * 128, 128, 2) grid.  Its border
+    rule is not detectron2's: a yardstick of time only, never called by
+    the port."""
     import torch.nn.functional as F
 
-    h, w, _ = image.shape
+    if image.dim() == 3:
+        image, rois = image[None], rois[None]
+    h, w = image.shape[1:3]
     for dtype in (image.dtype, torch.float32):
-        inp = image.permute(2, 0, 1)[None].contiguous().to(dtype)
-        g = k2_sample_grid(rois, h, w, (128, 128)).to(dtype)
+        inp = image.permute(0, 3, 1, 2).contiguous().to(dtype)
+        g = torch.cat([k2_sample_grid(r, h, w, (128, 128)) for r in rois]).to(dtype)
         try:
             F.grid_sample(inp, g, mode="bilinear", padding_mode="zeros", align_corners=False)
         except RuntimeError as e:
@@ -554,7 +582,8 @@ def k2_yardstick(image, rois):
             continue
         ms = kernel_ms(lambda: F.grid_sample(inp, g, mode="bilinear", padding_mode="zeros",
                                              align_corners=False))
-        log(f"K2 yardstick grid_sample ({dtype}, {rois.shape[0]} x 128 x 128 points): {ms:.4f} ms")
+        log(f"K2 yardstick grid_sample ({dtype}, {rois.shape[0]} x {rois.shape[1]} x 128 x 128 points): "
+            f"{ms:.4f} ms")
         return ms
     raise AssertionError("grid_sample ran in no dtype")
 
@@ -670,17 +699,19 @@ def _stage_kernels(event):
     return out
 
 
-def profile_model(runner, image, out_dir):
-    """torch.profiler over one model call: device busy share, the kernels
-    that take the most device time, and each stage span's kernels (count,
-    device time, and the ops that launched them)."""
+def profile_model(runner, image, out_dir, call=None, name="profile_main_path.txt"):
+    """torch.profiler over one model call (``runner.run_model(image)``, or
+    ``call()``): device busy share, the kernels that take the most device
+    time, and each stage span's kernels (count, device time, and the ops
+    that launched them), written to ``out_dir``/``name``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    call = call or (lambda: runner.run_model(image))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner.run_model(image)
+        call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side copies of the stage spans (gpu_user_annotation) and the
@@ -715,7 +746,7 @@ def profile_model(runner, image, out_dir):
     lines.append(f"  stages hold {staged_n} of {n_device} device records (kernels, copies) and "
                  f"{staged_ms:.3f} of {dev_ms:.3f} ms device time")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_main_path.txt"), "w") as f:
+    with open(os.path.join(out_dir, name), "w") as f:
         f.write(table + "\n\nper stage span:\n" + "\n".join(lines) + "\n")
     top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]
     log(f"profile (one model call, {wall_ms:.1f} ms wall): device busy {dev_ms:.1f} ms "
@@ -1065,6 +1096,46 @@ class StageClock:
     def __exit__(self, *exc):
         for cls, name, fn in self.saved:
             setattr(cls, name, fn)
+
+
+class MergeCount:
+    """The host merge's work (``merge_intersecting_boxes``): its calls,
+    the rows they take in and give back, and the rounds that merged a pair
+    (``_merge_rotated_boxes``, one a round)."""
+
+    def __init__(self):
+        self.calls = self.rows_in = self.rows_out = self.rounds = 0
+
+    def __enter__(self):
+        from glass_tpu_torch.postprocess import PostProcessorRotatedBoxes
+
+        cls = PostProcessorRotatedBoxes
+        self.saved = cls.merge_intersecting_boxes, cls.__dict__["_merge_rotated_boxes"]
+        merge, pair = self.saved
+
+        def counted_merge(pp, preds, *a, **k):
+            self.calls += 1
+            self.rows_in += len(preds)
+            out = merge(pp, preds, *a, **k)
+            self.rows_out += len(out)
+            return out
+
+        def counted_pair(owner, *a, **k):
+            self.rounds += 1
+            return pair.__func__(owner, *a, **k)
+
+        cls.merge_intersecting_boxes = counted_merge
+        cls._merge_rotated_boxes = classmethod(counted_pair)
+        return self
+
+    def __exit__(self, *exc):
+        from glass_tpu_torch.postprocess import PostProcessorRotatedBoxes
+
+        PostProcessorRotatedBoxes.merge_intersecting_boxes, PostProcessorRotatedBoxes._merge_rotated_boxes = self.saved
+
+    def summary(self):
+        return (f"host merge: {self.calls} calls, rows {self.rows_in} in and {self.rows_out} out, "
+                f"{self.rounds} merging rounds")
 
 
 def count_syncs(fn, device) -> tuple:
@@ -2177,7 +2248,7 @@ MODEL_VARIANTS = {
     "CNN_V2": [_RH + "RECOGNIZER_HEAD.BACKBONE.NAME", "CNN_V2"],
     "CTC": CTC_OPTS,
 }
-N_VARIANT_IMAGES = 2      # timed __call__ per option, after one warm-up
+N_VARIANT_IMAGES = 1      # timed __call__ per option, after one warm-up
 VARIANT_TRAIN_STEPS = 5   # CTC and FeatPadV2 training, IMS_PER_BATCH 1
 BEAM_WIDTH = 5
 BEAM_SCORE_ATOL = 1e-3    # best-beam log-probability, card against CPU (f32)
@@ -3451,6 +3522,544 @@ def _loop_syncs(trainer, device, loop_k) -> float:
     return syncs / loop_k
 
 
+# ---------------------------------------------------------------------------
+# phase 13: TPU.SERVE_BATCH_MODE="vmap", one batched program a batch
+# ---------------------------------------------------------------------------
+
+VMAP_BATCH = 4
+# 13(b), vmap against map (the bounds PERF.md section 6 states for phase
+# 13): detections an image may differ by this many (staged and
+# end to end; a random model's top-k and NMS meet near-ties that rounding
+# flips), at least this share of the staged detections, paired by box, lie
+# within phase 5's staged tolerances (f32); bf16: the staged heads' mask
+# probabilities within this, and at least this share of their rows read
+# the same text
+VMAP_VALID_DIFF = {"float32": 2, "bfloat16": 5}
+VMAP_F32_DET_SHARE = 0.9
+VMAP_BF16_MASK_ATOL = 0.15
+VMAP_BF16_SAME_TEXT = 0.75
+# f32 end to end (each mode's eval_batch_call on its own), of the
+# detections paired by box: at least this share within E2E_BOX_ATOL px, and
+# at least this share reading the same text
+VMAP_F32_E2E_BOX_SHARE = 0.93
+VMAP_F32_E2E_TEXT_SHARE = 0.85
+VMAP_SERVE_BATCHES = (3, 4)  # 13(e): two replicas, one padding row at 3
+
+
+def k2_batched_case(label, images, rois, sr, normalize, timed=True):
+    """13(a): one launch of K2 over a batch against its plain twin (each
+    image's plain crop), max |err| 0; timed like phase 3's cases."""
+    from glass_tpu_torch.ops import crop as cr
+    from glass_tpu_torch.ops.roi_align_rotated import adaptive_grid, fixed_grid
+
+    b, h, w = images.shape[:3]
+    out_hw = (128, 128)
+    launch = lambda: cr.crop_rois_batched(images, rois, out_hw, sr, 2, normalize)  # noqa: E731
+    got = launch()
+    ref = cr.crop_rois_batched_plain(images, rois, out_hw, sr, 2, normalize)
+    torch.cuda.synchronize()
+    err = _max_err(got, ref)
+    row = dict(input=f"{label} B={b}", sr=sr, err=err, tol=0.0)
+    if timed:
+        meta = torch.tensor([[1.0, h, w, 0.0]], device="cuda")
+        levels = torch.zeros((rois.shape[1],), dtype=torch.int32, device="cuda")
+        rows = samples = 0
+        for r in rois:
+            grid = fixed_grid(r.shape[0], sr, "cuda") if sr > 0 else adaptive_grid(r[:, 3], r[:, 2], out_hw, 2)
+            samples += int((grid[:, 0] * grid[:, 1]).sum()) * out_hw[0] * out_hw[1]
+            rows += touched_rows(meta, r, levels, grid, out_hw)
+        nbytes = rows * 3 * images.element_size() + got.numel() * got.element_size() + rois.numel() * 4
+        b_ms, b_by = bound(nbytes, samples * 3 * 8)
+        row.update(ms=kernel_ms(launch), call_ms=time_ms(launch, 50),
+                   plain_ms=time_ms(lambda: cr.crop_rois_batched_plain(images, rois, out_hw, sr, 2, normalize), 3, 1),
+                   bound_ms=b_ms, bound_by=b_by)
+        log(f"K2 batched {row['input']:18s} sr={sr} R={rois.shape[1]} an image max|err| {err:.3g} (tol 0) kernel "
+            f"{row['ms']:.4f} ms (wrapper call {row['call_ms']:.4f} ms) plain {row['plain_ms']:.3f} ms bound "
+            f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / row['ms']:.1f}% of it")
+    else:
+        log(f"K2 batched {row['input']:18s} sr={sr} R={rois.shape[1]} an image max|err| {err:.3g} (tol 0)")
+    if err != 0:
+        raise AssertionError(f"K2 batched {label} sr={sr}: max|err| {err} against the plain twin")
+    return row, got
+
+
+def phase13_k2(rng):
+    """13(a): K2 over B = 4 distinct images in one launch against its plain
+    twin: uint8 with the fold, f32, bf16 and fp16 at sampling ratio 1, bf16
+    at 2 and 0, and an image-edge case (B = 2, one roi each); the bf16 case
+    also equals four one-image launches; grid_sample over the batch in
+    bf16 as the yardstick."""
+    from glass_tpu_torch.ops import crop as cr
+
+    h, w = BUCKET_HW
+    rois = torch.from_numpy(np.stack([word_rois(rng, N_ROIS, h, w) for _ in range(VMAP_BATCH)])).cuda()
+    raw = torch.from_numpy(rng.randint(0, 256, (VMAP_BATCH, h, w, 3)).astype(np.uint8)).cuda()
+    mean = torch.tensor([103.53, 116.28, 123.675], device="cuda")
+    std = torch.tensor([57.375, 57.12, 58.395], device="cuda")
+    norm32 = (raw.float() - mean) / std
+    cases = (("uint8+fold", raw, (mean, std), (1,)), ("float32", norm32, None, (1,)),
+             ("bfloat16", norm32.to(torch.bfloat16), None, (1, 2, 0)),
+             ("float16", norm32.to(torch.float16), None, (1,)))
+    rows = []
+    for label, images, normalize, srs in cases:
+        for sr in srs:
+            row, got = k2_batched_case(label, images, rois, sr, normalize)
+            rows.append(row)
+            if label == "bfloat16" and sr == 1:
+                one = [cr.crop_rois(images[i], rois[i], (128, 128), 1, 2) for i in range(VMAP_BATCH)]
+                if not all(torch.equal(got[i], o) for i, o in enumerate(one)):
+                    raise AssertionError("K2 batched bf16: differs from one-image launches")
+                log("K2 batched bf16 sr=1: equal bit for bit to four one-image launches")
+    rows.append(k2_batched_case("bfloat16 edge", norm32[:2].to(torch.bfloat16), rois[:2, :1], 0, None,
+                                timed=False)[0])
+    lib_ms = k2_yardstick(norm32.to(torch.bfloat16), rois)
+    main = next(r for r in rows if r["input"] == f"bfloat16 B={VMAP_BATCH}" and r["sr"] == 1)
+    main["library_ms"] = lib_ms
+    log(f"phase 13 (a) K2 over {VMAP_BATCH} images, bf16 sr 1: {main['ms']:.4f} ms, bound {main['bound_ms']:.4f} ms "
+        f"({100 * main['bound_ms'] / main['ms']:.1f}%), plain {main['plain_ms']:.3f} ms, grid_sample "
+        f"{lib_ms:.4f} ms ({card_line()})")
+    return rows
+
+
+class RawPredictions:
+    """Records the raw instances (every valid row, before post-processing)
+    of each batch a runner's ``collect_batch`` returns."""
+
+    def __init__(self, runner):
+        self.runner, self.images = runner, []
+
+    def __enter__(self):
+        collect = self.runner.collect_batch
+
+        def recorded(dispatched):
+            out = collect(dispatched)
+            self.images.extend(out)
+            return out
+
+        self.runner.collect_batch = recorded
+        return self
+
+    def __exit__(self, *exc):
+        del self.runner.collect_batch
+
+
+def _break_rule(probs, eos=0):
+    """The steps an image's greedy decoder zeroes: every step after the
+    first at whose end each of the image's rows has emitted eos.  probs
+    (D, steps, V) -> (D, steps) bool."""
+    done = np.cumsum(probs.argmax(-1) == eos, axis=1) > 0
+    broke = np.cumsum(np.all(done, axis=0)) > 0
+    return np.broadcast_to(np.concatenate([[False], broke[:-1]]), done.shape)
+
+
+def forced_break(model, feats, norm, boxes, raw_images=None):
+    """13(b): ``recognize_batch`` with its decoder's inputs made to call
+    for a break in image 0 alone, on a copy of ``model``, as
+    tests/test_torch_vmap_serving.py::test_decoder_breaks_per_image makes
+    them: the GRU's candidate state follows the attention context alone
+    and the eos logit is the state's projection on a sign vector u, and
+    the encoder states are u (+ noise) on image 0's rows and -u on the
+    others', so that every row of image 0 emits eos at the first step and
+    no other row ever does.  A break per image zeroes image 0's later
+    steps and none of the others'; one break over the batch zeroes none.
+    Returns a failure, or None."""
+    from glass_tpu_torch.models import glass_rcnn as gr
+
+    forced = copy.deepcopy(model)
+    head = forced.roi_heads.recognizer_head
+    unit = head.aster
+    c, y = unit.gru.hidden_size, unit.tgt_embedding.weight.shape[1]
+    b, d = boxes.shape[:2]
+    gen = torch.Generator().manual_seed(5)
+    u = torch.where(torch.rand(c, generator=gen) < 0.5, -1.0, 1.0)
+    with torch.no_grad():
+        for p in (unit.gru.weight_ih_l0, unit.gru.weight_hh_l0, unit.gru.bias_ih_l0, unit.gru.bias_hh_l0,
+                  unit.fc.weight):
+            p.zero_()
+        unit.gru.weight_ih_l0[2 * c:, y:] = 10.0 * torch.eye(c)
+        unit.fc.weight[0] = 0.1 * u
+        unit.fc.bias.copy_(0.1 * torch.randn(unit.fc.bias.shape, generator=gen))
+    sign = torch.full((b,), -1.0)
+    sign[0] = 1.0
+    steps_in = 32  # the encoder's steps
+    enc = sign[:, None, None, None] * u + 0.01 * torch.randn((b, d, steps_in, c), generator=gen)
+    enc = enc.reshape(b * d, steps_in, c).to(boxes.device)
+    head.encode = lambda x: enc.to(x.dtype)
+    probs = gr.recognize_batch(forced, feats, norm, boxes, raw_images).float().cpu().numpy()
+    zero = probs.max(-1) == 0
+    want = np.zeros_like(zero)
+    want[0, :, 1:] = True
+    if not np.array_equal(zero, want) or not all(np.array_equal(zero[i], _break_rule(probs[i])) for i in range(b)):
+        return (f"decoder with a break forced in image 0: zeroed steps per image "
+                f"{[int(z.sum()) for z in zero]}, expected {[int(w.sum()) for w in want]}")
+    return None
+
+
+def _text_agreement(boxes_a, valid_a, ids_a, boxes_b, valid_b, ids_b):
+    """Per image, a's valid detections paired by box with b's: (pairs,
+    pairs within E2E_BOX_ATOL px, pairs reading the same ids at every
+    step), summed over the images.  Each argument is indexed by image."""
+    pairs = near = same = 0
+    for ba, va, ia, bb, vb, ib in zip(boxes_a, valid_a, ids_a, boxes_b, valid_b, ids_b):
+        k = int(min(va.sum(), vb.sum()))
+        if not k:
+            continue
+        a, b = ba[va][:k], bb[vb]
+        pair = _pair_rows(a, b)
+        near += int((_box_dist(a, b[pair]) <= E2E_BOX_ATOL).sum())
+        same += int(np.all(ia[va][:k] == ib[vb][pair], axis=-1).sum())
+        pairs += k
+    return pairs, near, same
+
+
+def staged_modes(runner, images, f32):
+    """13(b), staged: each stage of the batched program fed the map path's
+    own inputs to that stage, against the one-image stage, on one batch:
+    ``detect_batch`` on the per-image FPN maps stacked against
+    ``detect_single_image`` (the detections paired by box), then the
+    recognizer and the mask head over the batch on the per-image
+    detections against ``recognize_single_image`` and
+    ``mask_single_image``.  What differs is the batched arithmetic alone
+    (the RPN head's convolutions over the batch, the heads' over B * D
+    rows).  f32 is held to phase 5's staged tolerances: the heads on the
+    same boxes within 1e-3 (text and mask probabilities) with text ids
+    equal before a knife edge; of the detections, paired by box, at least
+    VMAP_F32_DET_SHARE within 0.05 px + 1e-4 relative and 1e-3 in score,
+    and the counts within VMAP_VALID_DIFF: a random model's RPN top-k and
+    NMS meet near-ties that the batch's rounding may flip, and a flipped
+    pick is another box (at the decode clamp, thousands of pixels away).
+    bf16 is held to VMAP_VALID_DIFF and VMAP_BF16_*.
+
+    The decoder's break, in both dtypes: the steps the batched decoder
+    zeroes are exactly those its own ids call for under a break per image
+    (``_break_rule``); in f32 they are also exactly the one-image
+    decoder's, unless a knife edge (a step of the one-image decoder whose
+    top two lie within KNIFE_EDGE) comes before the one-image break.
+
+    The witness (reported): the one-image stages run on the batch's own
+    backbone features, which differ from the per-image ones by the batch's
+    rounding (reported as max |diff| / max |map| over the FPN levels).
+    Paired by box, the same text is counted between vmap's stages on the
+    batch's features and map, the witness and map, and vmap and the
+    witness: if the witness parts from map as vmap does, the parting is
+    the backbone's rounding, not the batched stages.  Returns (failures,
+    summary)."""
+    from glass_tpu_torch.models import glass_rcnn as gr
+
+    model = runner.model
+    dev = next(model.parameters()).device
+    sizes = [im.shape[:2] for im in images]
+    bucket = tuple(max(v) for v in zip(*(runner._pick_bucket(*sz) for sz in sizes)))
+    padded = torch.zeros((len(images),) + bucket + (3,), dtype=torch.uint8)
+    for i, im in enumerate(images):
+        padded[i, :im.shape[0], :im.shape[1]] = torch.from_numpy(im)
+    padded = padded.to(dev)
+    raw = f32  # the eval path's uint8 upload crops the raw image under f32 compute
+    size_t = torch.tensor(sizes, dtype=torch.float32, device=dev)
+
+    def one_image_stages(feats_of):
+        dets, probs, masks = [], [], []
+        for i, hw in enumerate(sizes):
+            f = feats_of(i)
+            pyr = gr.pack_box_pyramid(model, f)
+            d = gr.detect_single_image(model, f, pyr, hw)
+            dets.append(d)
+            probs.append(gr.recognize_single_image(model, f, norms[i], d.boxes, padded[i] if raw else None))
+            masks.append(gr.mask_single_image(model, pyr, d.boxes, d.classes))
+        return dets, probs, masks
+
+    with torch.inference_mode():
+        norms = [gr.preprocess(model, padded[i]) for i in range(len(images))]
+        feats1 = [gr.backbone_features(model, n) for n in norms]
+        det1, probs1, masks1 = one_image_stages(lambda i: feats1[i])
+        norm = torch.stack(norms)
+        own = gr.backbone_features(model, norm)
+        feats = {k: torch.cat([f[k] for f in feats1]) for k in own}
+        feat_rel = max(float((own[k] - feats[k]).abs().max() / feats[k].abs().max()) for k in own)
+        pyr = gr.pack_box_pyramid(model, feats)
+        detb = gr.detect_batch(model, feats, pyr, size_t)
+        boxes = torch.stack([d.boxes for d in det1])
+        probsb = gr.recognize_batch(model, feats, norm, boxes, padded if raw else None).cpu().numpy()
+        masksb = gr.mask_batch(model, pyr, boxes, torch.stack([d.classes for d in det1])).cpu().numpy()
+        # the witness, and vmap's stages on the batch's own features
+        detw, probsw, _ = one_image_stages(lambda i: {k: v[i:i + 1] for k, v in own.items()})
+        detv = gr.detect_batch(model, own, gr.pack_box_pyramid(model, own), size_t)
+        probsv = gr.recognize_batch(model, own, norm, detv.boxes, padded if raw else None).cpu().numpy()
+        forced = forced_break(model, feats, norm, boxes, padded if raw else None)
+    failed, counts, box_d, score_d, same, rows = [forced] if forced else [], [], [0.0], [0.0], 0, 0
+    prob_d, mask_d, close, paired, excused, broke = [0.0], [0.0], 0, 0, [], collections.Counter()
+    for i, d in enumerate(det1):
+        v1, vb = d.valid.cpu().numpy(), detb.valid[i].cpu().numpy()
+        counts.append((int(v1.sum()), int(vb.sum())))
+        if abs(int(v1.sum()) - int(vb.sum())) > VMAP_VALID_DIFF["float32" if f32 else "bfloat16"]:
+            failed.append(f"image {i}: {counts[-1]} detections (map, vmap)")
+        k = int(min(v1.sum(), vb.sum()))
+        if k:
+            a, b = detb.boxes[i].cpu().numpy()[vb][:k], d.boxes.cpu().numpy()[v1]
+            pair = _pair_rows(a, b)
+            dist = _box_dist(a, b[pair])
+            sd = np.abs(detb.scores[i].cpu().numpy()[vb][:k] - d.scores.cpu().numpy()[v1][pair])
+            ok = (dist <= BOX_ATOL + BOX_RTOL * np.abs(b[pair][:, :4]).max(-1)) & (sd <= SCORE_ATOL)
+            close += int(ok.sum())
+            paired += k
+            box_d.append(float(np.median(dist)))
+            score_d.append(float(np.median(sd)))
+        # the heads on the same boxes, every row
+        p1, pb = probs1[i].cpu().numpy(), probsb[i]
+        zero1, zerob = p1.max(-1) == 0, pb.max(-1) == 0
+        for name, p, z in (("vmap", pb, zerob), ("map", p1, zero1), ("vmap on its own features", probsv[i],
+                                                                      probsv[i].max(-1) == 0)):
+            if not np.array_equal(z, _break_rule(p)):
+                failed.append(f"image {i}: the {name} decoder's zeroed steps are not those of a break per image")
+            broke[name] += int(z.any())
+        top2 = np.sort(p1, -1)[..., -2:]
+        edge = (top2[..., 1] - top2[..., 0] < KNIFE_EDGE) & ~zero1
+        steps = ~np.cumsum(edge, axis=1).astype(bool)
+        prob_d.append(float(np.abs(pb - p1)[steps].max()))
+        mask_d.append(float(np.abs(masksb[i] - masks1[i].cpu().numpy()).max()))
+        row_same = np.all(pb.argmax(-1) == p1.argmax(-1), axis=-1)
+        same += int(row_same.sum())
+        rows += len(row_same)
+        if f32:
+            ids_ok = bool((pb.argmax(-1)[steps] == p1.argmax(-1)[steps]).all())
+            if not np.array_equal(zerob, zero1):
+                first_break = int(np.argmax(zero1[0])) if zero1.any() else zero1.shape[1]
+                if edge[:, :first_break].any():
+                    excused.append(i)
+                else:
+                    failed.append(f"image {i}: the batched decoder zeroes other steps than the one-image one")
+            if prob_d[-1] > PROB_ATOL or mask_d[-1] > PROB_ATOL or not ids_ok:
+                failed.append(f"image {i}: text probs {prob_d[-1]:.3g}, masks {mask_d[-1]:.3g}, ids before a "
+                              f"knife edge equal {ids_ok}")
+        elif mask_d[-1] > VMAP_BF16_MASK_ATOL:
+            failed.append(f"image {i}: masks {mask_d[-1]:.3g}")
+    share = same / max(rows, 1)
+    det_share = close / max(paired, 1)
+    if f32 and det_share < VMAP_F32_DET_SHARE:
+        failed.append(f"{det_share:.3f} of paired detections within the tolerances (bound {VMAP_F32_DET_SHARE})")
+    if not f32 and share < VMAP_BF16_SAME_TEXT:
+        failed.append(f"{share:.3f} of rows read the same text (bound {VMAP_BF16_SAME_TEXT})")
+
+    def sets(dets, probs):
+        return ([t.boxes.cpu().numpy() for t in dets], [t.valid.cpu().numpy() for t in dets],
+                [np.asarray(p.cpu().numpy() if torch.is_tensor(p) else p).argmax(-1) for p in probs])
+
+    m = sets(det1, probs1)
+    w = sets(detw, probsw)
+    v = sets([gr.Detections(*(t[i] for t in detv)) for i in range(len(sizes))], list(probsv))
+    witness = {}
+    for name, (a, b) in (("vmap~map", (v, m)), ("witness~map", (w, m)), ("vmap~witness", (v, w))):
+        n, _, t = _text_agreement(*a, *b)
+        witness[name] = t / max(n, 1)
+    summary = (f"staged on one batch: the batch's backbone against the per-image ones {feat_rel:.3g} (reported); "
+               f"detections (map, vmap) {counts}, of {paired} paired {det_share:.3f} within 0.05 px + 1e-4 rel and "
+               f"1e-3 in score (median box diff {max(box_d):.3g}, score diff {max(score_d):.3g} at most an image); "
+               f"heads on the same {rows} rows: text probabilities {max(prob_d):.3g} before a knife edge, masks "
+               f"{max(mask_d):.3g}, same text on {share:.3f} of rows; the decoder breaks per image in both modes "
+               f"(images whose decoder broke before its last step: {dict(broke)} of {len(sizes)}; with a break "
+               f"forced in image 0 alone: {'as a break per image' if not forced else 'FAILED'})"
+               + (f", equal to map's except images {excused} (a knife edge before map's break)" if f32 else "")
+               + "; witness (map's one-image stages on the batch's backbone features), same text of paired "
+               + ", ".join(f"{k} {x:.3f}" for k, x in witness.items()))
+    return failed, summary
+
+
+def end_to_end_modes(raw_map, raw_vmap):
+    """13(b), end to end: each mode's eval_batch_call on its own, the raw
+    detections of each image paired by box.  A random model's top-k, NMS
+    and near-flat character distributions turn the rounding of the
+    batch's convolutions into other picks, so beyond the detection counts
+    (VMAP_VALID_DIFF) f32 holds shares (VMAP_F32_E2E_*) and bf16 is
+    reported (``staged_modes`` holds the arithmetic).  Returns the counts,
+    the share of pairs within E2E_BOX_ATOL px, the share reading the same
+    text, and a summary."""
+    counts = [(len(m), len(v)) for m, v in zip(raw_map, raw_vmap)]
+
+    def fields(images):
+        boxes = [np.asarray(p.pred_boxes) for p in images]
+        ids = "pred_text_ids" if images[0].has("pred_text_ids") else "pred_text_prob"
+        texts = [np.asarray(p.get(ids)) for p in images]
+        if ids == "pred_text_prob":
+            texts = [t.argmax(-1) for t in texts]
+        return boxes, [np.ones(len(b), bool) for b in boxes], texts
+
+    pairs, near, same = _text_agreement(*fields(raw_vmap), *fields(raw_map))
+    box_share, text_share = near / max(pairs, 1), same / max(pairs, 1)
+    text = (f"end to end: detections (map, vmap) per image {counts}; of {pairs} paired rows, boxes within "
+            f"{E2E_BOX_ATOL} px on {box_share:.3f}, the same text on {text_share:.3f}")
+    return counts, box_share, text_share, text
+
+
+def phase_vmap(state_dict, out_dir, device="cuda", n_images=N_IMAGES, hw=(720, 1280), opts=()):
+    """Phase 13 (b)-(e) on phase 6's eval set (written into ``--out``)."""
+    device = torch.device(device)
+    root = os.path.join(out_dir, "vmap")
+    try:
+        return _phase_vmap(state_dict, root, device, n_images, hw, opts)
+    finally:  # the images are large
+        import shutil
+
+        shutil.rmtree(os.path.join(root, "ds"), ignore_errors=True)
+
+
+def _phase_vmap(state_dict, root, device, n_images, hw, opts):
+    import cv2
+
+    from glass_tpu_torch.inference import GlassRunner
+    from glass_tpu_torch.inference.runner import shortest_edge_size
+    from glass_tpu_torch.ops import _cuda
+
+    write_eval_set(root, n_images, hw)
+    images = [cv2.imread(os.path.join(root, "ds", "synth_test", f"img_{i}.png")) for i in range(n_images)]
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "CPU"
+    launches, failed, out = collections.Counter(), [], {}
+
+    def runner(dtype, *extra, **kw):
+        cfg = eval_cfg(dtype, opts=[*LOOSE_OPTS, *opts, *extra])
+        return GlassRunner(cfg=cfg, state_dict=state_dict, device=device, **kw)
+
+    def serve(r, mode, imgs):
+        """eval_batch_call at batch 4 in ``mode``: predictions, raw rows, s
+        and the stage split (model, fetch, host)."""
+        r.cfg.TPU.SERVE_BATCH_MODE = mode
+        _cuda.LAUNCHES.clear()
+        with StageClock() as clock, RawPredictions(r) as raw:
+            t0 = time.perf_counter()
+            preds = r.eval_batch_call(imgs, batch_size=VMAP_BATCH)
+            if cuda:
+                torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+        launches.update(_cuda.LAUNCHES)
+        return preds, raw.images, took, dict(clock.ms)
+
+    # (b) staged on one batch (the eval path's resize); (b) end to end and
+    # (d): a warm-up batch of each mode's model program, then each mode's
+    # eval_batch_call over the 8 scenes.
+    # f32 and bf16: in f32 the two modes' predictions agree, so the host
+    # stages cost the same; in bf16 they part (a random model), and the
+    # host merge's cost follows the predictions.
+    rate = {}
+    for dtype in ("float32", "bfloat16"):
+        f32 = dtype == "float32"
+        r = runner(dtype, *(["TPU.TEXT_EMIT", "probs"] if f32 else []))
+        sizes = [shortest_edge_size(*im.shape[:2], r.min_target_size, r.max_target_size) for im in images]
+        batch = [cv2.resize(im, (nw, nh)) for im, (nh, nw) in zip(images[:VMAP_BATCH], sizes)]
+        bad, staged = staged_modes(r, batch, f32=f32)
+        for mode in ("map", "vmap"):  # warm-up: the model program alone; the host stages need none
+            r.cfg.TPU.SERVE_BATCH_MODE = mode
+            r.run_batch_on_resized(batch)
+        raw, timed = {}, {}
+        for mode in ("map", "vmap"):
+            with MergeCount() as merge:
+                preds, raw[mode], took, split = serve(r, mode, images)
+            lengths = [len(t) for p in preds if len(p) for t in r.decode_texts(p)[0]]
+            timed[mode] = (n_images / took, split, [len(p) for p in preds],
+                           f"raw rows {[len(p) for p in raw[mode]]}, mean word length "
+                           f"{np.mean(lengths) if lengths else 0.0:.2f}; {merge.summary()}")
+        rate[dtype] = {mode: t[0] for mode, t in timed.items()}
+        counts, box_share, text_share, e2e = end_to_end_modes(raw["map"], raw["vmap"])
+        if any(abs(a - b) > VMAP_VALID_DIFF[dtype] for a, b in counts):
+            bad.append(f"end-to-end detections (map, vmap) {counts}")
+        if f32 and (box_share < VMAP_F32_E2E_BOX_SHARE or text_share < VMAP_F32_E2E_TEXT_SHARE):
+            bad.append(f"end to end, boxes within {E2E_BOX_ATOL} px on {box_share:.3f} (bound "
+                       f"{VMAP_F32_E2E_BOX_SHARE}), the same text on {text_share:.3f} (bound {VMAP_F32_E2E_TEXT_SHARE})")
+        failed += [f"(b) {dtype} {b}" for b in bad]
+        bounds = (f"detections within {VMAP_VALID_DIFF[dtype]}, " + (
+            f"{VMAP_F32_DET_SHARE} of the staged ones within tolerance, end to end {VMAP_F32_E2E_BOX_SHARE} of "
+            f"the pairs' boxes and {VMAP_F32_E2E_TEXT_SHARE} of their texts" if f32 else
+            f"masks {VMAP_BF16_MASK_ATOL}, same text on {VMAP_BF16_SAME_TEXT} of the staged rows"))
+        log(f"phase 13 (b) {dtype} ({card}), vmap against map: {staged}; {e2e} (bounds: {bounds}) -> "
+            f"{'ok' if not bad else 'FAILED ' + str(bad)}")
+        for mode, (img_s, split, words, merge) in timed.items():
+            log(f"phase 13 (d) {dtype} {mode} ({card}): eval_batch_call over {n_images} scenes at batch "
+                f"{VMAP_BATCH}: {img_s:.3f} img/s; " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+                + f"; words {words}; {merge}")
+    r16 = r
+
+    # (c) launches and host syncs of one batch, (d) the device share
+    for mode in ("map", "vmap"):
+        r16.cfg.TPU.SERVE_BATCH_MODE = mode
+        _cuda.LAUNCHES.clear()
+        r16.run_batch_on_resized(batch)
+        got = dict(_cuda.LAUNCHES)
+        launches.update(got)
+        per = 1 if mode == "vmap" else VMAP_BATCH
+        want = {"roi_align_rotated": 3 * per, "crop_rois": per}
+        peak = float("nan")
+        if cuda:  # above what is allocated when the batch starts (earlier phases' runners included)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            r16.run_batch_on_resized(batch)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        syncs, where = count_syncs(lambda: r16.run_batch_on_resized(batch), device)
+        wall_ms = dev_ms = float("nan")
+        if cuda:
+            wall_ms, dev_ms = profile_model(None, None, root, call=lambda: r16.run_batch_on_resized(batch),
+                                            name=f"profile_{mode}_batch.txt")
+        out[mode] = dict(img_s=rate["bfloat16"][mode], img_s_f32=rate["float32"][mode], launches=got, syncs=syncs,
+                         model_ms=wall_ms, device_ms=dev_ms, peak_mib=peak)
+        log(f"phase 13 (c) {mode} ({card}): one batch of {VMAP_BATCH}: peak memory {peak:.0f} MiB above the start (bf16, "
+            f"run_batch_on_resized); launches {got}, host syncs {syncs} "
+            f"({syncs / VMAP_BATCH:.2f} an image; most from {where}); one profiled batch (run_batch_on_resized) "
+            f"{wall_ms:.1f} ms wall, device busy {dev_ms:.1f} ms = {100 * dev_ms / wall_ms:.1f}%")
+        if cuda and got != want:
+            failed.append(f"(c) {mode} launches {got}, expected {want}")
+
+    # (e) two replicas on the one device under vmap: each replica's rows
+    # equal one replica's vmap program on the same rows, bit for bit
+    two = runner("bfloat16", "TPU.SERVE_DATA_PARALLEL", "True", "TPU.SERVE_BATCH_MODE", "vmap",
+                 serve_devices=[device, device])
+    if len(two.replicas) != 2:
+        raise AssertionError(f"13 (e): {len(two.replicas)} replicas, asked 2")
+    r16.cfg.TPU.SERVE_BATCH_MODE = "vmap"
+    program = r16.batch_model_fn()
+    resized = [im.astype(np.float32) for im in batch]
+    _cuda.LAUNCHES.clear()
+    dp = {b: finish_fetch_dispatch(two, resized[:b]) for b in VMAP_SERVE_BATCHES}
+    got = dict(_cuda.LAUNCHES)
+    launches.update(got)
+    diffs = {}
+    bucket = tuple(max(v) for v in zip(*(r16._pick_bucket(*sz) for sz in sizes[:VMAP_BATCH])))
+    for b, fields in dp.items():
+        padded = torch.zeros((2 * -(-b // 2),) + bucket + (3,), dtype=torch.float32, device=device)
+        hws = np.ones((padded.shape[0], 2), np.int32)
+        for i, im in enumerate(resized[:b]):
+            padded[i, :im.shape[0], :im.shape[1]] = torch.from_numpy(im).to(device)
+            hws[i] = im.shape[:2]
+        k = padded.shape[0] // 2
+        with torch.inference_mode():
+            halves = [program(padded[s:s + k], hws[s:s + k]) for s in (0, k)]
+        want = {key: torch.cat([h[key] for h in halves])[:b].cpu().numpy() for key in halves[0]}
+        diffs[b] = [key for key in fields if not np.array_equal(fields[key], want[key])]
+    rows = sum(2 * -(-b // 2) for b in VMAP_SERVE_BATCHES)
+    log(f"phase 13 (e) ({card}): SERVE_DATA_PARALLEL under vmap, two replicas on the one device at b = "
+        f"{list(VMAP_SERVE_BATCHES)}: fields differing from one replica's vmap program on the same rows {diffs}; "
+        f"launches {got} over {len(VMAP_SERVE_BATCHES)} batches ({rows} rows, padding included)")
+    if any(diffs.values()):
+        failed.append(f"(e) data-parallel vmap differs: {diffs}")
+    want = {"roi_align_rotated": 3 * 2 * len(VMAP_SERVE_BATCHES), "crop_rois": 2 * len(VMAP_SERVE_BATCHES)}
+    if cuda and got != want:
+        failed.append(f"(e) launches {got}, expected {want}")
+    log(f"phase 13 ({card}): eval_batch_call at batch {VMAP_BATCH}, img/s map / vmap: bf16 "
+        f"{rate['bfloat16']['map']:.3f} / {rate['bfloat16']['vmap']:.3f}, f32 {rate['float32']['map']:.3f} / "
+        f"{rate['float32']['vmap']:.3f}; host syncs a batch map {out['map']['syncs']}, vmap {out['vmap']['syncs']}")
+    if failed:
+        raise AssertionError(f"phase 13: {failed}")
+    out["launches"] = dict(launches)
+    return out
+
+
+def finish_fetch_dispatch(runner, images) -> dict:
+    """``dispatch_batch`` then the fetch: the raw fields (B, D, ...)."""
+    from glass_tpu_torch.inference.runner import finish_fetch
+
+    with torch.inference_mode():
+        fetch, _ = runner.dispatch_batch(images)
+    return finish_fetch(fetch)
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     return {
         "name": name,
@@ -3469,7 +4078,7 @@ def kernel_entry(name, source, replaces, launches, rows):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
     ap.add_argument("--out", default="chip_smoke_out", help="directory for the build log and the profile table")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -3491,14 +4100,14 @@ def main():
     rng = np.random.RandomState(0)
     rois_np = word_rois(rng, N_ROIS, *BUCKET_HW)
     k1_rows = k2_rows = k1b_rows = None
-    main = train = variants = distributed = fp16 = None
+    main = train = variants = distributed = fp16 = vmap = None
     if 1 in phases:
         phase_build(args.out)
     if 2 in phases:
         k1_rows, k1_edge = phase_k1(rng, rois_np)
     if 3 in phases:
         k2_rows, k2_edge, k2_lib_ms = phase_k2(rng, rois_np)
-    if phases & {4, 5, 6, 9, 10, 11, 12}:
+    if phases & {4, 5, 6, 9, 10, 11, 12, 13}:
         images = [synthetic_image(np.random.RandomState(100 + i), 720, 1280) for i in range(N_IMAGES)]
         state_dict = seeded_weights(images[0])
         if 4 in phases:
@@ -3524,6 +4133,11 @@ def main():
         fp16 = dict(kernels=phase12_kernels(np.random.RandomState(12)))
         fp16.update(phase_fp16_remat_loop(state_dict, images, args.out, main=main, train=train))
         log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    if 13 in phases:
+        t0 = time.perf_counter()
+        vmap = dict(k2=phase13_k2(np.random.RandomState(13)))
+        vmap.update(phase_vmap(state_dict, args.out))
+        log(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     # the main paths' launches: K1 and K2 from phase 4's serving, K1b from
@@ -3534,6 +4148,7 @@ def main():
     launches.update((variants or {}).get("launches", {}))
     launches.update((distributed or {}).get("launches", {}))
     launches.update((fp16 or {}).get("launches", {}))
+    launches.update((vmap or {}).get("launches", {}))
     fp16_rows = (fp16 or {}).get("kernels", {})
     per_image = (main or {}).get("n_images", 1)
     if k1_rows:
@@ -3547,7 +4162,8 @@ def main():
         rows = [r for r in k2_rows if r["input"] == "bfloat16" and r["sr"] == 1]
         entry = kernel_entry("crop_rois", "glass_tpu_torch/csrc/crop_rois.cu",
                              "glass_tpu/ops/pallas_crop.py:77", launches.get("crop_rois", 0), rows)
-        entry["max_abs_err"] = max(r["err"] for r in k2_rows + k2_edge + fp16_rows.get("k2", []))
+        entry["max_abs_err"] = max(r["err"] for r in k2_rows + k2_edge + fp16_rows.get("k2", [])
+                                   + (vmap or {}).get("k2", []))
         entry["library_ms"] = k2_lib_ms
         kernels.append(entry)
     if k1b_rows:
@@ -3560,9 +4176,10 @@ def main():
         kernels.append(entry)
     log(f"kernel times are per image at the main-path shapes (bfloat16; K1 summed over its "
         f"three poolers); launches over phase 4's {per_image} main-path images, phase 8's training "
-        f"steps, phase 10's serving and training, phase 11's distributed training and serving and "
-        f"phase 12's fp16 serving and training, remat and chunked training; max_abs_err over every "
-        f"dtype's case (phase 12's fp16 ones included), on {card}")
+        f"steps, phase 10's serving and training, phase 11's distributed training and serving, "
+        f"phase 12's fp16 serving and training, remat and chunked training and phase 13's vmap and "
+        f"map serving; max_abs_err over every dtype's case (phase 12's fp16 ones and phase 13's "
+        f"batched K2 included), on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -521,14 +521,13 @@ def get_default_config() -> CN:
     # one-process-per-GPU launch().  In the port: one replica per visible
     # GPU in one process, the batch rows split over them.
     _C.TPU.SERVE_DATA_PARALLEL = False
-    # Batched-serving realisation: "map" runs the hand-tuned single-image
-    # program sequentially per batch row inside one jit (lax.map) — each
-    # row keeps its REAL lax.cond branches (adaptive pooler split, dead
-    # block skipping) and single-row gather layouts. "vmap" vectorizes the
-    # batch dim instead, which flattens every cond to execute-both-branches
-    # select and re-tiles the gathers — measured 2.6x SLOWER end-to-end on
-    # v5e (b=4: 35.5 ms/img map vs 94 ms/img vmap, round-5 A/B). Outputs
-    # of "map" are bit-identical to the b=1 serving path by construction.
+    # Batched-serving realisation (inference/runner.py::batch_model_fn):
+    # "map" runs the single-image program once per batch row, so its
+    # outputs are bit-identical to b=1 serving; any other value ("vmap")
+    # runs one program over the batch (models/glass_rcnn.py::
+    # glass_inference_batch: one backbone call, one launch per pooler and
+    # one crop launch a batch, one NMS fixpoint a stage), equal to "map"
+    # up to rounding.  Their speeds on the card are in PERF.md.
     _C.TPU.SERVE_BATCH_MODE = "map"
     # Thread-pool width for per-image host post-processing inside
     # eval_batch_call (numpy releases the GIL). 0 = sequential.

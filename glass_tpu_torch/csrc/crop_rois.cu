@@ -7,16 +7,17 @@
 // with normalize=(mean, std), glass_rcnn.py recognizer_encode).
 //
 // Inputs:
-//   img    (H, W, 3) uint8, f32, bf16 or fp16, channels interleaved, at least two
-//          pixels, its start aligned to two elements
-//   rois   (R, 5) f32 (cx, cy, w, h, angle in degrees)
+//   img    (B, H, W, 3) uint8, f32, bf16 or fp16: B images, channels
+//          interleaved, at least two pixels each, every image's start
+//          aligned to two elements (its start, and H * W even when B > 1)
+//   rois   (B, R, 5) f32 (cx, cy, w, h, angle in degrees): R rois an image
 //   sampling_ratio > 0: fixed g x g grid per output pixel; 0: adaptive
 //          ceil(extent / out) per axis, capped at max_sampling_ratio
 //   mean, std (3,) f32, used when fold != 0 (uint8 input): the output is
 //          sum_k w_k * (raw_k - mean) / std, i.e. the crop of the
 //          normalized image, computed per sample as (sum w raw - sum w *
 //          mean) / std so out-of-bounds taps stay exact zeros
-//   out    (R, OH, OW, 3): f32 for uint8 input, else the image dtype
+//   out    (B, R, OH, OW, 3): f32 for uint8 input, else the image dtype
 //
 // What bounds it on the H100 (device times: chip_smoke.py phase 3 and
 // glass_tpu_torch/study/kernel_variants.py).  100 crops of 128 x 128 x 3
@@ -32,9 +33,12 @@
 // weighted sums, with no FMA.
 //
 // Design: fewer instructions a sample.
-// * A grid of (roi, band of kRowsPerBlock output rows) blocks, rois
+// * A grid of (roi, band of kRowsPerBlock output rows, image) blocks, rois
 //   fastest, so no block divides its index and a roi's bands spread over
-//   the SMs.  3 rows a block is within ~2 % of the fastest of 1, 2, 4 and
+//   the SMs.  One launch crops every image of a batch (glass_tpu's vmap
+//   gives its crop a batch axis of the grid): block (r, band, b) reads
+//   image b, offset by b * H * W * 3 elements in 64 bits, so only one
+//   image's element offsets need 32 bits.  3 rows a block is within ~2 % of the fastest of 1, 2, 4 and
 //   8 in every case of the study.  A thread takes one output column of its
 //   band (and every 128th after it): neighbouring threads take
 //   neighbouring pixels (a warp's taps share cache lines, its stores are
@@ -236,10 +240,10 @@ __device__ __forceinline__ void store_pixel(const float acc[3], TOut* o) {
 // fixed G x G grid (1 or 2), or 0 for each roi's grid at run time.
 template <typename TIn, typename TOut, int G, bool NARROW>
 __device__ __forceinline__ void crop_band(const CropFrame& f, const TIn* __restrict__ img, int H,
-                                          int W, int OH, int OW, int fold, int r, int i0, int i1,
-                                          TOut* __restrict__ out) {
+                                          int W, int OH, int OW, int fold, long long r, int i0,
+                                          int i1, TOut* __restrict__ out) {
   for (int j = threadIdx.x; j < OW; j += kThreads) {
-    TOut* o = out + (((long long)r * OH + i0) * OW + j) * 3;
+    TOut* o = out + ((r * OH + i0) * OW + j) * 3;
     if constexpr (G > 0) {
       // the column's sample offsets times sin and cos, once
       float xs[G], xc[G];
@@ -278,81 +282,87 @@ __device__ __forceinline__ void crop_band(const CropFrame& f, const TIn* __restr
   }
 }
 
-// Block (r, b) computes output rows [b * rows_per_block, ...) of crop r.
+// Block (r, band, b) computes output rows [band * rows_per_block, ...) of
+// crop r of image b, which is crop b * R + r of the batch.
 template <typename TIn, typename TOut, int G, bool NARROW>
 __global__ void __launch_bounds__(kThreads)
-crop_rois_kernel(const TIn* __restrict__ img, int H, int W, const float* __restrict__ rois,
+crop_rois_kernel(const TIn* __restrict__ img, int H, int W, const float* __restrict__ rois, int R,
                  int sampling_ratio, int max_sampling_ratio, int OH, int OW, int fold,
                  const float* __restrict__ mean, const float* __restrict__ stdv,
                  int rows_per_block, TOut* __restrict__ out) {
-  const int r = blockIdx.x;
+  const long long r = (long long)blockIdx.z * R + blockIdx.x;
   const int i0 = blockIdx.y * rows_per_block;
   // every thread computes the roi's frame: no shared memory, no barrier
   const CropFrame f =
       make_frame(rois + 5 * r, sampling_ratio, max_sampling_ratio, OH, OW, fold, mean, stdv);
-  crop_band<TIn, TOut, G, NARROW>(f, img, H, W, OH, OW, fold, r, i0,
-                                  min(i0 + rows_per_block, OH), out);
+  crop_band<TIn, TOut, G, NARROW>(f, img + (long long)blockIdx.z * H * W * 3, H, W, OH, OW, fold, r,
+                                  i0, min(i0 + rows_per_block, OH), out);
 }
 
 template <typename TIn, typename TOut, bool NARROW>
 void launch(int sampling_ratio, dim3 blocks, int threads, cudaStream_t s, const void* img, int H,
-            int W, const float* rois, int max_sampling_ratio, int OH, int OW, int fold,
+            int W, const float* rois, int R, int max_sampling_ratio, int OH, int OW, int fold,
             const float* mean, const float* stdv, int rows_per_block, void* out) {
   const TIn* im = static_cast<const TIn*>(img);
   TOut* o = static_cast<TOut*>(out);
   if (sampling_ratio == 1) {
     crop_rois_kernel<TIn, TOut, 1, NARROW><<<blocks, threads, 0, s>>>(
-        im, H, W, rois, sampling_ratio, max_sampling_ratio, OH, OW, fold, mean, stdv,
+        im, H, W, rois, R, sampling_ratio, max_sampling_ratio, OH, OW, fold, mean, stdv,
         rows_per_block, o);
   } else if (sampling_ratio == 2) {
     crop_rois_kernel<TIn, TOut, 2, NARROW><<<blocks, threads, 0, s>>>(
-        im, H, W, rois, sampling_ratio, max_sampling_ratio, OH, OW, fold, mean, stdv,
+        im, H, W, rois, R, sampling_ratio, max_sampling_ratio, OH, OW, fold, mean, stdv,
         rows_per_block, o);
   } else {
     crop_rois_kernel<TIn, TOut, 0, NARROW><<<blocks, threads, 0, s>>>(
-        im, H, W, rois, sampling_ratio, max_sampling_ratio, OH, OW, fold, mean, stdv,
+        im, H, W, rois, R, sampling_ratio, max_sampling_ratio, OH, OW, fold, mean, stdv,
         rows_per_block, o);
   }
 }
 
 template <typename TIn, typename TOut>
 void launch_any(int sampling_ratio, dim3 blocks, int threads, cudaStream_t s, const void* img,
-                int H, int W, const float* rois, int max_sampling_ratio, int OH, int OW,
+                int H, int W, const float* rois, int R, int max_sampling_ratio, int OH, int OW,
                 int fold, const float* mean, const float* stdv, int rows_per_block, void* out) {
   if (W == 1) {
-    launch<TIn, TOut, true>(sampling_ratio, blocks, threads, s, img, H, W, rois,
+    launch<TIn, TOut, true>(sampling_ratio, blocks, threads, s, img, H, W, rois, R,
                             max_sampling_ratio, OH, OW, fold, mean, stdv, rows_per_block, out);
   } else {
-    launch<TIn, TOut, false>(sampling_ratio, blocks, threads, s, img, H, W, rois,
+    launch<TIn, TOut, false>(sampling_ratio, blocks, threads, s, img, H, W, rois, R,
                              max_sampling_ratio, OH, OW, fold, mean, stdv, rows_per_block, out);
   }
 }
 
-// Launches the kernel over R crops, one block per (roi, band of
-// rows_per_block output rows).
-int launch_crop(const void* img, int dtype, int H, int W, const float* rois, int R,
+// Launches the kernel over R crops of each of B images, one block per
+// (roi, band of rows_per_block output rows, image).
+int launch_crop(const void* img, int dtype, int B, int H, int W, const float* rois, int R,
                 int sampling_ratio, int max_sampling_ratio, int OH, int OW, int fold,
                 const float* mean, const float* stdv, int rows_per_block, void* out,
                 cudaStream_t s) {
-  if (R == 0) return 0;
+  if (R == 0 || B == 0) return 0;
   const int bands = rows_per_block > 0 ? (OH + rows_per_block - 1) / rows_per_block : 0;
-  // element offsets of the image are 32-bit; grid.y takes at most 65535 bands
-  if (bands <= 0 || bands > 65535 || H * W < 2 || 3LL * H * W > 2147483647LL)
+  // grid.y and grid.z take at most 65535 bands and images; the element
+  // offsets within an image are 32-bit (the image's own offset, b * H * W *
+  // 3, and a roi's, are 64-bit, so B * 3 * H * W may exceed 32 bits); with
+  // B > 1 an odd H * W would start every other image off the two-element
+  // alignment of the pair loads
+  if (bands <= 0 || bands > 65535 || B < 0 || B > 65535 || H * W < 2 ||
+      3LL * H * W > 2147483647LL || (B > 1 && (H * W) % 2))
     return (int)cudaErrorInvalidValue;
-  const dim3 blocks((unsigned)R, (unsigned)bands);
+  const dim3 blocks((unsigned)R, (unsigned)bands, (unsigned)B);
   const int threads = min(kThreads, ((OW + 31) / 32) * 32);
   if (dtype == kUInt8) {
-    launch_any<uint8_t, float>(sampling_ratio, blocks, threads, s, img, H, W, rois,
+    launch_any<uint8_t, float>(sampling_ratio, blocks, threads, s, img, H, W, rois, R,
                                max_sampling_ratio, OH, OW, fold, mean, stdv, rows_per_block, out);
   } else if (dtype == kFloat32) {
-    launch_any<float, float>(sampling_ratio, blocks, threads, s, img, H, W, rois,
+    launch_any<float, float>(sampling_ratio, blocks, threads, s, img, H, W, rois, R,
                              max_sampling_ratio, OH, OW, 0, mean, stdv, rows_per_block, out);
   } else if (dtype == kBFloat16) {
     launch_any<__nv_bfloat16, __nv_bfloat16>(sampling_ratio, blocks, threads, s, img, H, W, rois,
-                                             max_sampling_ratio, OH, OW, 0, mean, stdv,
+                                             R, max_sampling_ratio, OH, OW, 0, mean, stdv,
                                              rows_per_block, out);
   } else if (dtype == kFloat16) {
-    launch_any<__half, __half>(sampling_ratio, blocks, threads, s, img, H, W, rois,
+    launch_any<__half, __half>(sampling_ratio, blocks, threads, s, img, H, W, rois, R,
                                max_sampling_ratio, OH, OW, 0, mean, stdv, rows_per_block, out);
   } else {
     return (int)cudaErrorInvalidValue;
@@ -362,10 +372,10 @@ int launch_crop(const void* img, int dtype, int H, int W, const float* rois, int
 
 }  // namespace
 
-extern "C" int glass_crop_rois(const void* img, int dtype, int H, int W, const float* rois, int R,
-                               int sampling_ratio, int max_sampling_ratio, int OH, int OW,
+extern "C" int glass_crop_rois(const void* img, int dtype, int B, int H, int W, const float* rois,
+                               int R, int sampling_ratio, int max_sampling_ratio, int OH, int OW,
                                int fold, const float* mean, const float* stdv, void* out,
                                void* stream) {
-  return launch_crop(img, dtype, H, W, rois, R, sampling_ratio, max_sampling_ratio, OH, OW, fold,
-                     mean, stdv, kRowsPerBlock, out, (cudaStream_t)stream);
+  return launch_crop(img, dtype, B, H, W, rois, R, sampling_ratio, max_sampling_ratio, OH, OW,
+                     fold, mean, stdv, kRowsPerBlock, out, (cudaStream_t)stream);
 }

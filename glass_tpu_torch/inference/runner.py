@@ -17,20 +17,24 @@ does.  ``forward_with_given_boxes`` runs the heads on boxes given from
 outside (the TTA path, ``inference/tta.py``).
 
 Batched serving (``batch_call``, ``eval_batch_call``) uploads a padded
-batch in one pinned copy, runs the per-image program over its rows
-(``TPU.SERVE_BATCH_MODE="map"``: outputs equal b = 1 serving bit for bit)
-and fetches the outputs of the whole batch in one copy.  The per-image
-program reads a few values back on the host (the poolers' grid extents, the
-NMS fixpoints), so the thread that dispatches it waits on the device; with
-``TPU.ASYNC_FETCH`` a worker thread therefore runs the model and the fetch
-of the next batch while the calling thread post-processes the last one.
+batch in one pinned copy, runs the model program on it and fetches the
+outputs of the whole batch in one copy.  ``TPU.SERVE_BATCH_MODE="map"`` runs
+the single-image program over the batch's rows (outputs equal b = 1 serving
+bit for bit); any other mode ("vmap") runs one program over the batch
+(``glass_inference_batch``: one backbone call, each pooler and the crop one
+launch a batch, one NMS fixpoint a stage), whose outputs equal map's up to
+rounding.  Either program reads a few values back on the host (the NMS
+fixpoints' convergence tests), so the thread that dispatches it waits on
+the device; with ``TPU.ASYNC_FETCH`` a worker thread therefore runs the
+model and the fetch of the next batch while the calling thread
+post-processes the last one.
 
 ``TPU.SERVE_DATA_PARALLEL`` splits the rows of a batch over the serving
 devices (every visible GPU, or ``serve_devices``): one replica of the model
-per device, the batch padded with zero images to a multiple of the device
-count, each device mapping the single-image program over its contiguous
-rows from a thread of its own, the outputs gathered in row order.  With
-one device it is a no-op, as in glass_tpu.
+per device, the batch padded with zero images of 1x1 content to a multiple
+of the device count, each device running the program (map or vmap) on its
+contiguous rows from a thread of its own, the outputs gathered in row
+order.  With one device it is a no-op, as in glass_tpu.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from ..models import (
     GlassRCNN,
     glass_detect_stage,
     glass_heads_stage,
+    glass_inference_batch,
     glass_inference_single,
 )
 from ..models.glass_rcnn import backbone_features, pack_box_pyramid, preprocess
@@ -360,28 +365,28 @@ class GlassRunner:
     def batch_model_fn(self):
         """The batched model program, per TPU.SERVE_BATCH_MODE.  "map" runs
         the single-image program over the rows of the uploaded batch, so its
-        outputs equal b = 1 serving bit for bit."""
+        outputs equal b = 1 serving bit for bit; any other mode (glass_tpu's
+        "vmap") runs ``glass_inference_batch``, one program over the batch."""
         mode = str(getattr(self.cfg.TPU, "SERVE_BATCH_MODE", "map"))
-        if mode != "map":
-            raise NotImplementedError(
-                f"TPU.SERVE_BATCH_MODE={mode!r} is not ported to glass_tpu_torch yet "
-                "(the vmap-serving slice); use 'map'"
-            )
-        def mapped(model, imgs: torch.Tensor, hws: np.ndarray) -> dict:
-            outs = [glass_inference_single(model, imgs[i], (int(hws[i, 0]), int(hws[i, 1])))
-                    for i in range(imgs.shape[0])]
-            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        if mode == "map":
+            def program(model, imgs: torch.Tensor, hws: np.ndarray) -> dict:
+                outs = [glass_inference_single(model, imgs[i], (int(hws[i, 0]), int(hws[i, 1])))
+                        for i in range(imgs.shape[0])]
+                return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        else:
+            program = glass_inference_batch
 
         if len(self.replicas) == 1:
-            return lambda imgs, hws: mapped(self.model, imgs, hws)
-        return lambda imgs, hws: self._data_parallel(mapped, imgs, hws)
+            return lambda imgs, hws: program(self.model, imgs, hws)
+        return lambda imgs, hws: self._data_parallel(program, imgs, hws)
 
-    def _data_parallel(self, mapped, imgs: torch.Tensor, hws: np.ndarray) -> dict:
-        """glass_tpu's shard_map of the per-row map: the batch padded to a
-        multiple of the replica count with zero images of 1x1 content,
-        replica d mapping rows [d*k, (d+1)*k) on its device from a thread of
-        its own (inference mode is per thread), the outputs gathered in row
-        order on this runner's device and cut back to the batch."""
+    def _data_parallel(self, program, imgs: torch.Tensor, hws: np.ndarray) -> dict:
+        """glass_tpu's sharding of the batched program: the batch padded to
+        a multiple of the replica count with zero images of 1x1 content,
+        replica d running ``program`` on rows [d*k, (d+1)*k) on its device
+        from a thread of its own (inference mode is per thread), the outputs
+        gathered in row order on this runner's device and cut back to the
+        batch."""
         n, b = len(self.replicas), imgs.shape[0]
         k = -(-b // n)
         pad = n * k - b
@@ -395,7 +400,7 @@ class GlassRunner:
             # the kernels launch on the thread's current device
             guard = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
             with guard, torch.inference_mode():
-                out = mapped(model, imgs[d * k:(d + 1) * k].to(dev), hws[d * k:(d + 1) * k])
+                out = program(model, imgs[d * k:(d + 1) * k].to(dev), hws[d * k:(d + 1) * k])
                 return {key: v.to(self.device) for key, v in out.items()}
 
         with ThreadPoolExecutor(n) as pool:

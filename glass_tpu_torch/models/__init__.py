@@ -5,5 +5,6 @@ from .glass_rcnn import (
     emit_text,
     glass_detect_stage,
     glass_heads_stage,
+    glass_inference_batch,
     glass_inference_single,
 )

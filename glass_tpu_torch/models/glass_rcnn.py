@@ -1,4 +1,4 @@
-"""GLASS R-CNN at inference: the full image -> words path for one image.
+"""GLASS R-CNN at inference: the full image -> words path.
 
 Counterpart of ``glass_tpu/models/glass_rcnn.py``:
 
@@ -22,8 +22,19 @@ the stride-32 extent of the content are masked, and the recognizer and
 mask head run on all ``DETECTIONS_PER_IMAGE`` rows, invalid ones included
 (the decoder's batch-global stop depends on them).
 
+Every stage is written over a batch of padded images, and its one-image
+function is the batch of one.  ``glass_inference_batch`` runs one program
+over a batch (``TPU.SERVE_BATCH_MODE="vmap"``, glass_tpu's ``jax.vmap`` of
+``glass_inference_single``): one backbone call over the batch, one batched
+NMS a stage, the poolers over the batch's packed pyramid with each image's
+own large-roi budget, the crops of every image in one launch, and the
+decoder's break per image.  Each image's fields are those of its own
+``glass_inference_single`` up to rounding (the batch's convolutions and
+matrix products may add in another order).
+
 Every rotated pool is one launch of kernel K1 (``ops/roi_align_rotated``)
-and the raw-image crop one launch of kernel K2 (``ops/crop``).
+and the raw-image crop one launch of kernel K2 (``ops/crop``), for one
+image or a batch.
 """
 
 from __future__ import annotations
@@ -40,7 +51,7 @@ from .box_head import (
     Detections,
     FastRCNNConvFCHead,
     RotatedFastRCNNOutputLayers,
-    fast_rcnn_inference_single_image,
+    fast_rcnn_inference_batch,
 )
 from .fpn import FPN_LEVEL_STRIDES, ResNetFPN
 from .fusion import P2P3Fusion, build_fusion
@@ -50,13 +61,12 @@ from .pooler_pad import padded_pool
 from .recognizer import RecognizerHead, aster_decode_greedy, ctc_logits
 from . import rpn as rpn_mod
 from ..ops.boxes import apply_deltas
-from ..ops.crop import crop_rois
+from ..ops.crop import crop_rois_batched
 from ..ops.nms_rotated import NEG_INF
 from ..ops.roi_align_rotated import (
     PackedPyramid,
     multilevel_pool,
-    pack_pyramid,
-    roi_align_rotated_adaptive,
+    pack_batch_pyramid,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -308,122 +318,173 @@ def backbone_features(model: GlassRCNN, norm: torch.Tensor) -> Dict[str, torch.T
     return model.backbone(x)
 
 
-def rpn_proposals_single(model: GlassRCNN, feats, content_hw):
-    """-> proposal boxes (P, 5), scores (P,), valid (P,)."""
+def rpn_proposals_batch(model: GlassRCNN, feats, image_sizes):
+    """-> proposal boxes (B, P, 5), scores (B, P), valid (B, P).
+
+    image_sizes: a (B, 2) f32 tensor of each image's content (h, w) on the
+    features' device, or one (h, w) for every image."""
     arch = model.arch
     features = [feats[f] for f in arch.rpn_in_features]
     logits, deltas = model.proposal_generator.rpn_head(features)
     # Mask anchors whose centres lie beyond the content's stride-32 extent:
     # the reference pads only to stride divisibility, so bucket padding must
     # not add proposals it would never see.
-    max_h = math.ceil(content_hw[0] / 32.0) * 32.0
-    max_w = math.ceil(content_hw[1] / 32.0) * 32.0
+    if torch.is_tensor(image_sizes):
+        extent = torch.ceil(image_sizes / 32.0) * 32.0
+        max_h, max_w = extent[:, 0, None], extent[:, 1, None]
+    else:
+        max_h = math.ceil(image_sizes[0] / 32.0) * 32.0
+        max_w = math.ceil(image_sizes[1] / 32.0) * 32.0
     anchors, masked = [], []
     for i, f in enumerate(features):
         anc = model.anchors(i, f.shape[2], f.shape[3], f.device)
         inside = (anc[:, 0] < max_w) & (anc[:, 1] < max_h)
-        lg = logits[i][0].to(torch.float32)
+        lg = logits[i].to(torch.float32)
         anchors.append(anc)
         masked.append(torch.where(inside, lg, torch.full_like(lg, NEG_INF)))
-    return rpn_mod.select_proposals_single_image(
-        masked, [d[0] for d in deltas], anchors, content_hw, arch.rpn_bbox_weights,
+    return rpn_mod.select_proposals_batch(
+        masked, deltas, anchors, image_sizes, arch.rpn_bbox_weights,
         arch.rpn_pre_nms_topk, arch.rpn_post_nms_topk, arch.rpn_nms_thresh,
     )
 
 
+def rpn_proposals_single(model: GlassRCNN, feats, content_hw):
+    """-> proposal boxes (P, 5), scores (P,), valid (P,)."""
+    return tuple(t[0] for t in rpn_proposals_batch(model, feats, content_hw))
+
+
 def pack_box_pyramid(model: GlassRCNN, feats) -> PackedPyramid:
-    """The box/mask poolers' levels packed once per image."""
+    """The box/mask poolers' levels of every image of the features' batch,
+    packed once."""
     names = model.arch.box_in_features
-    return pack_pyramid([nhwc(feats[f]) for f in names],
-                        [1.0 / FPN_LEVEL_STRIDES[f] for f in names])
+    return pack_batch_pyramid([feats[f].permute(0, 2, 3, 1) for f in names],
+                              [1.0 / FPN_LEVEL_STRIDES[f] for f in names])
 
 
 def _min_level(model: GlassRCNN) -> int:
     return FPN_LEVEL_STRIDES[model.arch.box_in_features[0]].bit_length() - 1
 
 
-def detect_single_image(model: GlassRCNN, feats, pyr: PackedPyramid, content_hw) -> Detections:
-    """RPN + box head + NMS for one padded image."""
+def detect_batch(model: GlassRCNN, feats, pyr: PackedPyramid, image_sizes) -> Detections:
+    """RPN + box head + NMS for a batch of padded images: Detections with a
+    leading (B,).  image_sizes as ``rpn_proposals_batch``; the box pooler
+    takes the B * P proposals in one launch, each image's with its own
+    large-roi budget."""
     arch = model.arch
     with record_function("glass.rpn"):
-        prop_boxes, _, prop_valid = rpn_proposals_single(model, feats, content_hw)
+        prop_boxes, _, prop_valid = rpn_proposals_batch(model, feats, image_sizes)
+    b, p = prop_valid.shape
     with record_function("glass.box_head"):
+        rois = prop_boxes.reshape(-1, 5)
         pooled = multilevel_pool(
-            pyr, _min_level(model), prop_boxes,
+            pyr, _min_level(model), rois,
             (arch.box_pooler_resolution, arch.box_pooler_resolution),
             arch.box_pooler_sampling_ratio, arch.pool_max_sampling_ratio,
-            arch.pool_bulk_sampling_ratio, arch.pool_large_roi_budget,
+            arch.pool_bulk_sampling_ratio, arch.pool_large_roi_budget, rois_per_image=p,
         )
         rh = model.roi_heads
         x = rh.box_head(pooled).to(torch.float32)
         scores, deltas, orient = rh.box_predictor(x)
         probs = torch.softmax(scores, dim=-1)
-        boxes = apply_deltas(deltas, prop_boxes, arch.box_bbox_weights)
-        return fast_rcnn_inference_single_image(
-            boxes, probs, orient, prop_valid, content_hw, arch.score_thresh, arch.nms_thresh,
+        boxes = apply_deltas(deltas, rois, arch.box_bbox_weights)
+        return fast_rcnn_inference_batch(
+            boxes.view(b, p, 5), probs.view(b, p, -1), None if orient is None else orient.view(b, p, -1),
+            prop_valid, image_sizes, arch.score_thresh, arch.nms_thresh,
             arch.detections_per_image, arch.apply_orientation_to_boxes and arch.orientation_on,
         )
 
 
-def recognizer_encode(model: GlassRCNN, feats, norm_image, boxes, raw_image=None):
+def detect_single_image(model: GlassRCNN, feats, pyr: PackedPyramid, content_hw) -> Detections:
+    """RPN + box head + NMS for one padded image."""
+    return Detections(*(t[0] for t in detect_batch(model, feats, pyr, content_hw)))
+
+
+def recognizer_encode_batch(model: GlassRCNN, feats, norm_images, boxes, raw_images=None):
     """P2P3 fusion -> 8x32 pool + raw-image crops -> local CNN -> fusion
-    -> recognizer CNN -> BiLSTM: encoder states (D, T, C).  Under FeatPadV2
+    -> recognizer CNN -> BiLSTM over a batch: norm_images (B, H, W, 3),
+    boxes (B, D, 5) -> encoder states (B * D, T, C), image-major.  The 8x32
+    pool is one launch over the batch-packed fused map (each image's own
+    large-roi budget), the crops one launch over the batch.  Under FeatPadV2
     the pool takes the widened boxes and its padding columns are zeroed;
     the crops take ``boxes`` as they are.
 
-    raw_image: the (H, W, 3) uint8 image; when given, the crops are pooled
-    from it with the normalization folded in.
+    raw_images: the (B, H, W, 3) uint8 images; when given, the crops are
+    pooled from them with the normalization folded in.
     """
     arch = model.arch
     rh = model.roi_heads
+    d = boxes.shape[1]
     # channels-last, so the pooler reads the map in place (no copy)
     fused = rh.recognizer_feature_fusion(feats["p2"], feats["p3"]).contiguous(
         memory_format=torch.channels_last)
-    global_feats = padded_pool(arch, boxes, lambda pool_boxes: roi_align_rotated_adaptive(
-        nhwc(fused), pool_boxes, arch.recognizer_pool_hw,
-        spatial_scale=1.0 / FPN_LEVEL_STRIDES["p2"],
-        max_sampling_ratio=arch.pool_max_sampling_ratio,
-        bulk_sampling_ratio=arch.recognizer_pool_bulk_sampling_ratio,
-        large_roi_budget=arch.pool_large_roi_budget,
+    pyr = pack_batch_pyramid([fused.permute(0, 2, 3, 1)], [1.0 / FPN_LEVEL_STRIDES["p2"]])
+    global_feats = padded_pool(arch, boxes.reshape(-1, 5), lambda pool_boxes: multilevel_pool(
+        pyr, 0, pool_boxes, arch.recognizer_pool_hw, 0, arch.pool_max_sampling_ratio,
+        arch.recognizer_pool_bulk_sampling_ratio, arch.pool_large_roi_budget, rois_per_image=d,
     ))
-    if raw_image is not None:
-        crops = crop_rois(raw_image, boxes, arch.img_crop_hw, arch.img_crop_sampling_ratio,
-                          arch.crop_max_sampling_ratio,
-                          normalize=(model.pixel_mean, model.pixel_std))
+    if raw_images is not None:
+        crops = crop_rois_batched(raw_images, boxes, arch.img_crop_hw, arch.img_crop_sampling_ratio,
+                                  arch.crop_max_sampling_ratio,
+                                  normalize=(model.pixel_mean, model.pixel_std))
         crops = crops.to(arch.torch_dtype)
     else:
-        crops = crop_rois(norm_image, boxes, arch.img_crop_hw, arch.img_crop_sampling_ratio,
-                          arch.crop_max_sampling_ratio)
-    crops = crops.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        crops = crop_rois_batched(norm_images, boxes, arch.img_crop_hw, arch.img_crop_sampling_ratio,
+                                  arch.crop_max_sampling_ratio)
+    crops = crops.flatten(0, 1).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     local_feats = rh.hybrid_net(crops)
     x = torch.cat([local_feats, global_feats.permute(0, 3, 1, 2)], dim=1)
     return rh.recognizer_head.encode(rh.fusion_net(x))
 
 
-def recognize_single_image(model: GlassRCNN, feats, norm_image, boxes, raw_image=None):
-    """-> (D, max_word_len + 1, V) per-step character probabilities; CTC:
-    (D, T, V) per-timestep probabilities (T = 32, the encoder's steps),
-    which the codec's CTC decoding collapses."""
-    enc = recognizer_encode(model, feats, norm_image, boxes, raw_image).to(torch.float32)
+def recognizer_encode(model: GlassRCNN, feats, norm_image, boxes, raw_image=None):
+    """``recognizer_encode_batch`` of one image: norm_image (H, W, 3),
+    boxes (D, 5) -> encoder states (D, T, C)."""
+    return recognizer_encode_batch(model, feats, norm_image[None], boxes[None],
+                                   None if raw_image is None else raw_image[None])
+
+
+def recognize_batch(model: GlassRCNN, feats, norm_images, boxes, raw_images=None):
+    """boxes (B, D, 5) -> (B, D, max_word_len + 1, V) per-step character
+    probabilities; CTC: (B, D, T, V) per-timestep probabilities (T = 32,
+    the encoder's steps), which the codec's CTC decoding collapses.  The
+    greedy decoder breaks per image, as glass_tpu's under ``jax.vmap``."""
+    b, d = boxes.shape[:2]
+    enc = recognizer_encode_batch(model, feats, norm_images, boxes, raw_images).to(torch.float32)
     head = model.roi_heads.recognizer_head
     if head.ctc:
-        return torch.softmax(ctc_logits(head.decoder, enc), dim=-1)
-    return aster_decode_greedy(head.aster, enc, model.arch.max_word_len + 1)
+        probs = torch.softmax(ctc_logits(head.decoder, enc), dim=-1)
+    else:
+        probs = aster_decode_greedy(head.aster, enc, model.arch.max_word_len + 1, group=d)
+    return probs.view((b, d) + probs.shape[1:])
+
+
+def recognize_single_image(model: GlassRCNN, feats, norm_image, boxes, raw_image=None):
+    """``recognize_batch`` of one image: boxes (D, 5) -> (D, steps, V)."""
+    return recognize_batch(model, feats, norm_image[None], boxes[None],
+                           None if raw_image is None else raw_image[None])[0]
+
+
+def mask_batch(model: GlassRCNN, pyr: PackedPyramid, boxes, classes):
+    """boxes (B, D, 5), classes (B, D) -> (B, D, 28, 28) mask
+    probabilities.  The 14x14 pool is adaptive, capped at
+    POOL_MAX_SAMPLING_RATIO, with the bulk grid + large-roi budget of
+    glass_tpu (each image its own), one launch over the batch."""
+    arch = model.arch
+    b, d = boxes.shape[:2]
+    pooled = multilevel_pool(
+        pyr, _min_level(model), boxes.reshape(-1, 5),
+        (arch.mask_pooler_resolution, arch.mask_pooler_resolution), 0,
+        arch.pool_max_sampling_ratio, arch.mask_pool_bulk_sampling_ratio,
+        arch.pool_large_roi_budget, rois_per_image=d,
+    )
+    logits = model.roi_heads.mask_head(pooled.permute(0, 3, 1, 2))
+    probs = mask_inference_probs(logits.to(torch.float32), classes.reshape(-1))
+    return probs.view((b, d) + probs.shape[1:])
 
 
 def mask_single_image(model: GlassRCNN, pyr: PackedPyramid, boxes, classes):
-    """-> (D, 28, 28) mask probabilities.  The 14x14 pool is adaptive,
-    capped at POOL_MAX_SAMPLING_RATIO, with the bulk grid + large-roi budget
-    of glass_tpu."""
-    arch = model.arch
-    pooled = multilevel_pool(
-        pyr, _min_level(model), boxes,
-        (arch.mask_pooler_resolution, arch.mask_pooler_resolution), 0,
-        arch.pool_max_sampling_ratio, arch.mask_pool_bulk_sampling_ratio,
-        arch.pool_large_roi_budget,
-    )
-    logits = model.roi_heads.mask_head(pooled.permute(0, 3, 1, 2))
-    return mask_inference_probs(logits.to(torch.float32), classes)
+    """-> (D, 28, 28) mask probabilities of one image."""
+    return mask_batch(model, pyr, boxes[None], classes[None])[0]
 
 
 def emit_mask(arch: GlassArch, probs: torch.Tensor) -> torch.Tensor:
@@ -449,55 +510,78 @@ def emit_text(arch: GlassArch, probs: torch.Tensor) -> dict:
     return {"text_probs": probs}
 
 
-def glass_detect_stage(model: GlassRCNN, image: torch.Tensor, content_hw):
-    """Stage 1 of two-stage inference, and the first half of
-    ``glass_inference_single``: backbone, RPN, box head and NMS.
+def glass_detect_batch(model: GlassRCNN, images: torch.Tensor, image_sizes):
+    """Backbone, RPN, box head and NMS over a batch of padded images.
+
+    images: (B, H_pad, W_pad, 3) raw BGR images (uint8 or float), contents
+        at the top left, on the model's device.
+    image_sizes: as ``rpn_proposals_batch``.
 
     Returns the detection fields (boxes, scores, classes, orientations,
-    valid), the FPN features, the normalized image and the packed box
-    pyramid; the features and the pyramid stay on the device for stage 2,
-    which pools the mask head from the pyramid as it is (no second
-    packing)."""
-    content_hw = (int(content_hw[0]), int(content_hw[1]))
+    valid), each (B, D, ...), the FPN features, the normalized images and
+    the packed box pyramid; the features and the pyramid stay on the device
+    for the heads, which pool the mask head from the pyramid as it is (no
+    second packing)."""
     with record_function("glass.backbone"):
-        norm = preprocess(model, image)
+        norm = preprocess(model, images)
         feats = backbone_features(model, norm)
         pyr = pack_box_pyramid(model, feats)
-    det = detect_single_image(model, feats, pyr, content_hw)
-    out = {
-        "boxes": det.boxes,
-        "scores": det.scores,
-        "classes": det.classes,
-        "orientations": det.orientations,
-        "valid": det.valid,
-    }
-    return out, feats, norm, pyr
+    det = detect_batch(model, feats, pyr, image_sizes)
+    return dict(det._asdict()), feats, norm, pyr
 
 
-def glass_heads_stage(model: GlassRCNN, feats, norm: torch.Tensor, pyr: PackedPyramid,
-                      boxes: torch.Tensor, classes=None, raw_image=None) -> dict:
-    """Stage 2: the recognizer (text fields, ``emit_text``) and, with
-    MASK_INFERENCE, the mask head on a (R, 5) box set; ``classes`` None
-    is class 0 for every row (the two-stage and given-boxes paths).
-    ``raw_image``: the (H, W, 3) uint8 image, cropped with the
-    normalization folded in."""
+def glass_detect_stage(model: GlassRCNN, image: torch.Tensor, content_hw):
+    """Stage 1 of two-stage inference: ``glass_detect_batch`` of one
+    (H_pad, W_pad, 3) image with (h, w) content -> detection fields (D, ...),
+    features, the (H_pad, W_pad, 3) normalized image, the box pyramid."""
+    out, feats, norm, pyr = glass_detect_batch(model, image[None],
+                                               (int(content_hw[0]), int(content_hw[1])))
+    return {k: v[0] for k, v in out.items()}, feats, norm[0], pyr
+
+
+def glass_heads_batch(model: GlassRCNN, feats, norm: torch.Tensor, pyr: PackedPyramid,
+                      boxes: torch.Tensor, classes: torch.Tensor, raw_images=None) -> dict:
+    """The recognizer (text fields, ``emit_text``) and, with MASK_INFERENCE,
+    the mask head over a batch: boxes (B, D, 5), classes (B, D) -> fields
+    (B, D, ...).  ``raw_images``: the (B, H, W, 3) uint8 images, cropped
+    with the normalization folded in."""
     arch = model.arch
     out = {}
     if arch.recognizer_on:
         with record_function("glass.recognizer"):
-            probs = recognize_single_image(model, feats, norm, boxes, raw_image=raw_image)
+            probs = recognize_batch(model, feats, norm, boxes, raw_images=raw_images)
             out.update(emit_text(arch, probs))
     if arch.mask_on and arch.mask_inference:
         with record_function("glass.mask_head"):
-            if classes is None:
-                classes = torch.zeros((boxes.shape[0],), dtype=torch.int32, device=boxes.device)
-            out["mask_probs"] = emit_mask(arch, mask_single_image(model, pyr, boxes, classes))
+            out["mask_probs"] = emit_mask(arch, mask_batch(model, pyr, boxes, classes))
+    return out
+
+
+def glass_heads_stage(model: GlassRCNN, feats, norm: torch.Tensor, pyr: PackedPyramid,
+                      boxes: torch.Tensor, classes=None, raw_image=None) -> dict:
+    """Stage 2: ``glass_heads_batch`` of one image on a (R, 5) box set;
+    ``classes`` None is class 0 for every row (the two-stage and
+    given-boxes paths).  ``raw_image``: the (H, W, 3) uint8 image."""
+    if classes is None:
+        classes = torch.zeros((boxes.shape[0],), dtype=torch.int32, device=boxes.device)
+    out = glass_heads_batch(model, feats, norm[None], pyr, boxes[None], classes[None],
+                            None if raw_image is None else raw_image[None])
+    return {k: v[0] for k, v in out.items()}
+
+
+def _glass_inference(model: GlassRCNN, images: torch.Tensor, image_sizes) -> dict:
+    out, feats, norm, pyr = glass_detect_batch(model, images, image_sizes)
+    # uint8 images + f32 compute: crop the raw images with the normalization
+    # folded in (exact); under bf16 the crops are bf16 anyway, so crop the
+    # normalized images.
+    use_raw = images.dtype == torch.uint8 and model.arch.torch_dtype == torch.float32
+    out.update(glass_heads_batch(model, feats, norm, pyr, out["boxes"], out["classes"],
+                                 raw_images=images if use_raw else None))
     return out
 
 
 def glass_inference_single(model: GlassRCNN, image: torch.Tensor, content_hw) -> dict:
-    """Full single-image inference: ``glass_detect_stage`` then
-    ``glass_heads_stage`` on every detection row.
+    """Full single-image inference: the batch program on one image.
 
     image: (H_pad, W_pad, 3) raw BGR image (uint8 or float), content at the
         top left, on the model's device.
@@ -512,11 +596,18 @@ def glass_inference_single(model: GlassRCNN, image: torch.Tensor, content_hw) ->
     ``glass.mask_head``), so a ``torch.profiler`` trace attributes device
     kernels to stages.
     """
-    out, feats, norm, pyr = glass_detect_stage(model, image, content_hw)
-    # uint8 image + f32 compute: crop the raw image with the normalization
-    # folded in (exact); under bf16 the crops are bf16 anyway, so crop the
-    # normalized image.
-    use_raw = image.dtype == torch.uint8 and model.arch.torch_dtype == torch.float32
-    out.update(glass_heads_stage(model, feats, norm, pyr, out["boxes"], out["classes"],
-                                 raw_image=image if use_raw else None))
-    return out
+    out = _glass_inference(model, image[None], (int(content_hw[0]), int(content_hw[1])))
+    return {k: v[0] for k, v in out.items()}
+
+
+def glass_inference_batch(model: GlassRCNN, images: torch.Tensor, hws) -> dict:
+    """One program over a batch (``TPU.SERVE_BATCH_MODE="vmap"``).
+
+    images: (B, H_pad, W_pad, 3) raw BGR images (uint8 or float), contents
+        at the top left, on the model's device.
+    hws: (B, 2) content sizes (h, w): ints on the host, or a tensor.
+
+    Returns the fields of ``glass_inference_single`` stacked, (B, D, ...).
+    """
+    return _glass_inference(model, images, torch.as_tensor(hws, dtype=torch.float32,
+                                                           device=images.device))

@@ -195,26 +195,31 @@ def aster_decode_train(decoder: DecoderUnit, x: torch.Tensor, targets: torch.Ten
 
 
 def aster_decode_greedy(decoder: DecoderUnit, x: torch.Tensor, num_steps: int,
-                        eos_index: int = 0) -> torch.Tensor:
+                        eos_index: int = 0, group: int | None = None) -> torch.Tensor:
     """Greedy decode: per-step softmax probabilities (N, num_steps, V).
 
     Runs all ``num_steps`` steps with no host synchronisation; steps after
-    the batch-global break produce zero rows.
+    the break produce zero rows.  The break is global over each ``group``
+    of consecutive rows (default: all N), once every row of the group has
+    emitted eos: the rows of one image, as glass_tpu's decoder under
+    ``jax.vmap`` breaks per image.
     """
     n = x.shape[0]
+    group = group or max(n, 1)
     sdim = decoder.gru.weight_hh_l0.shape[1]
     xe = decoder.attention_unit.xEmbed
     x_proj = L.linear(x, xe.weight, xe.bias)
     state = torch.zeros((n, sdim), dtype=x.dtype, device=x.device)
     y_prev = torch.zeros((n,), dtype=torch.int64, device=x.device)
-    done = torch.zeros((n,), dtype=torch.bool, device=x.device)
-    broke = torch.zeros((), dtype=torch.bool, device=x.device)
+    done = torch.zeros((n // group, group), dtype=torch.bool, device=x.device)
+    broke = torch.zeros((n // group, 1, 1), dtype=torch.bool, device=x.device)
     steps = []
     for _ in range(num_steps):
         logits, state = decoder.step(x, x_proj, state, y_prev)
         probs = torch.softmax(logits, dim=-1)
         y_prev = torch.argmax(probs, dim=-1)
-        steps.append(torch.where(broke, torch.zeros_like(probs), probs))
-        done = done | (y_prev == eos_index)
-        broke = broke | torch.all(done)
+        grouped = probs.view(n // group, group, probs.shape[-1])
+        steps.append(torch.where(broke, torch.zeros_like(grouped), grouped).view(probs.shape))
+        done = done | (y_prev == eos_index).view(n // group, group)
+        broke = broke | torch.all(done, dim=1)[:, None, None]
     return torch.stack(steps, dim=1)

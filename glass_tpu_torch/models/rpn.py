@@ -3,7 +3,7 @@
 Counterpart of ``glass_tpu/models/rpn.py``: d2 ``RotatedAnchorGenerator``
 cell anchors, ``StandardRPNHead``, and per-level top-k -> decode -> clip ->
 exact rotated NMS -> global top-k proposal selection over fixed-capacity
-padded sets.
+padded sets, over a batch of images (``select_proposals_batch``) or one.
 
 Tie order: ``lax.top_k`` (and glass_tpu's ``exact_top_k``) put lower
 indices first among equal values, while ``torch.topk`` promises no tie
@@ -21,7 +21,7 @@ from torch import nn
 
 from . import layers as L
 from ..ops.boxes import apply_deltas, clip_rotated_boxes, nonempty
-from ..ops.nms_rotated import NEG_INF, nms_rotated_mask
+from ..ops.nms_rotated import NEG_INF, nms_rotated_mask_batched
 
 
 def generate_cell_anchors(sizes, aspect_ratios, angles) -> np.ndarray:
@@ -51,9 +51,10 @@ def generate_anchors_for_level(
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``lax.top_k`` semantics: descending, lower index first on ties."""
-    values, idx = torch.sort(x, descending=True, stable=True)
-    return values[:k], idx[:k]
+    """``lax.top_k`` semantics over the last axis: descending, lower index
+    first on ties."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
 
 
 class StandardRPNHead(nn.Module):
@@ -80,6 +81,63 @@ class StandardRPNHead(nn.Module):
         return logits, deltas
 
 
+def select_proposals_batch(
+    logits: List[torch.Tensor],
+    deltas: List[torch.Tensor],
+    anchors: List[torch.Tensor],
+    image_sizes,
+    bbox_reg_weights,
+    pre_nms_topk: int,
+    post_nms_topk: int,
+    nms_thresh: float,
+    min_size: float = 0.0,
+):
+    """Per image and level: top-k, decode, clip, exact NMS; then each
+    image's global top-k.
+
+    logits (B, H*W*A) and deltas (B, H*W*A, 5) per level, anchors (H*W*A,
+    5) per level; image_sizes: a (B, 2) f32 tensor of each image's (h, w),
+    or one (h, w) for every image.  The NMS of every (level, image) set is
+    one batched call, each level's sets padded to the largest with invalid
+    rows (which are never kept and suppress nothing).
+    Returns boxes (B, post, 5), scores (B, post), valid (B, post), each row
+    score-sorted.
+    """
+    sets = []
+    for lg, dl, an in zip(logits, deltas, anchors):
+        k = min(pre_nms_topk, lg.shape[1])
+        scores, idx = top_k(lg, k)
+        # decode in f32 whatever the head's compute dtype
+        picked = torch.gather(dl, 1, idx[..., None].expand(-1, -1, dl.shape[2]))
+        boxes = apply_deltas(picked.to(torch.float32), an[idx], bbox_reg_weights)
+        boxes = clip_rotated_boxes(boxes, image_sizes)
+        valid = (
+            torch.isfinite(scores)
+            & torch.all(torch.isfinite(boxes), dim=-1)
+            & nonempty(boxes, min_size)
+        )
+        sets.append((boxes, scores, valid))
+    width = max(s[1].shape[1] for s in sets)
+
+    def padded(t, value):
+        fill = t.new_full((t.shape[0], width - t.shape[1]) + tuple(t.shape[2:]), value)
+        return torch.cat([t, fill], dim=1)
+
+    keep = nms_rotated_mask_batched(
+        torch.cat([padded(b, 0.0) for b, _, _ in sets]),
+        torch.cat([padded(s, NEG_INF) for _, s, _ in sets]),
+        nms_thresh,
+        valid=torch.cat([padded(v, False) for _, _, v in sets]),
+    ).view(len(sets), -1, width)
+    keep = torch.cat([keep[i, :, : s[1].shape[1]] for i, s in enumerate(sets)], dim=1)
+    boxes = torch.cat([s[0] for s in sets], dim=1)
+    scores = torch.cat([s[1] for s in sets], dim=1)
+    scores = torch.where(keep, scores, torch.full_like(scores, NEG_INF))
+    top_scores, top_idx = top_k(scores, post_nms_topk)
+    top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 5))
+    return top_boxes, top_scores, torch.gather(keep, 1, top_idx) & (top_scores > NEG_INF / 2)
+
+
 def select_proposals_single_image(
     logits: List[torch.Tensor],
     deltas: List[torch.Tensor],
@@ -91,29 +149,11 @@ def select_proposals_single_image(
     nms_thresh: float,
     min_size: float = 0.0,
 ):
-    """Per level: top-k, decode, clip, exact NMS; then the global top-k.
-
-    logits (H*W*A,), deltas (H*W*A, 5), anchors (H*W*A, 5) per level.
-    Returns boxes (post, 5), scores (post,), valid (post,), score-sorted.
-    """
-    all_boxes, all_scores, all_valid = [], [], []
-    for lg, dl, an in zip(logits, deltas, anchors):
-        k = min(pre_nms_topk, lg.shape[0])
-        scores, idx = top_k(lg, k)
-        # decode in f32 whatever the head's compute dtype
-        boxes = apply_deltas(dl[idx].to(torch.float32), an[idx], bbox_reg_weights)
-        boxes = clip_rotated_boxes(boxes, image_size)
-        valid = (
-            torch.isfinite(scores)
-            & torch.all(torch.isfinite(boxes), dim=-1)
-            & nonempty(boxes, min_size)
-        )
-        keep = nms_rotated_mask(boxes, scores, nms_thresh, valid=valid)
-        all_boxes.append(boxes)
-        all_scores.append(torch.where(keep, scores, torch.full_like(scores, NEG_INF)))
-        all_valid.append(keep)
-    boxes = torch.cat(all_boxes, dim=0)
-    scores = torch.cat(all_scores, dim=0)
-    valid = torch.cat(all_valid, dim=0)
-    top_scores, top_idx = top_k(scores, post_nms_topk)
-    return boxes[top_idx], top_scores, valid[top_idx] & (top_scores > NEG_INF / 2)
+    """``select_proposals_batch`` for one image: logits (H*W*A,), deltas
+    (H*W*A, 5), anchors (H*W*A, 5) per level.  Returns boxes (post, 5),
+    scores (post,), valid (post,), score-sorted."""
+    out = select_proposals_batch(
+        [lg[None] for lg in logits], [d[None] for d in deltas], anchors, image_size,
+        bbox_reg_weights, pre_nms_topk, post_nms_topk, nms_thresh, min_size,
+    )
+    return tuple(t[0] for t in out)

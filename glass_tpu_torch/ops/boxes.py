@@ -8,7 +8,7 @@ coordinates (y pointing down), the detectron2 convention.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Sequence
 
 import torch
 
@@ -42,16 +42,28 @@ def boxes_to_polygons(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def clip_rotated_boxes(
-    boxes: torch.Tensor, image_size: Tuple[float, float], clip_angle_threshold: float = 1.0
+    boxes: torch.Tensor, image_size, clip_angle_threshold: float = 1.0
 ) -> torch.Tensor:
     """detectron2 ``RotatedBoxes.clip``: only nearly axis-aligned boxes
-    (|angle| <= threshold) are clipped to the image, others pass through."""
-    h_img, w_img = float(image_size[0]), float(image_size[1])
+    (|angle| <= threshold) are clipped to the image, others pass through.
+
+    image_size: (h, w) for every box, or a (B, 2) f32 tensor of each image's
+    size for (B, N, 5) boxes."""
+    if torch.is_tensor(image_size):
+        h_img, w_img = image_size[:, 0, None], image_size[:, 1, None]
+
+        def clamp(v, hi):  # clamp(v, 0, hi) with a tensor bound, the same bits
+            return torch.minimum(torch.clamp(v, min=0.0), hi)
+    else:
+        h_img, w_img = float(image_size[0]), float(image_size[1])
+
+        def clamp(v, hi):
+            return torch.clamp(v, 0.0, hi)
     cx, cy, w, h, a = boxes.unbind(-1)
-    x1 = torch.clamp(cx - w / 2.0, 0.0, w_img)
-    y1 = torch.clamp(cy - h / 2.0, 0.0, h_img)
-    x2 = torch.clamp(cx + w / 2.0, 0.0, w_img)
-    y2 = torch.clamp(cy + h / 2.0, 0.0, h_img)
+    x1 = clamp(cx - w / 2.0, w_img)
+    y1 = clamp(cy - h / 2.0, h_img)
+    x2 = clamp(cx + w / 2.0, w_img)
+    y2 = clamp(cy + h / 2.0, h_img)
     clipped = torch.stack([(x1 + x2) / 2.0, (y1 + y2) / 2.0, x2 - x1, y2 - y1, a], dim=-1)
     nearly_aligned = (torch.abs(a) <= clip_angle_threshold)[..., None]
     return torch.where(nearly_aligned, clipped, boxes)

@@ -271,8 +271,8 @@ extern "C" int study_crop_rows(const void* img, int dtype, int H, int W, const f
                                int sampling_ratio, int max_sampling_ratio, int OH, int OW,
                                int fold, const float* mean, const float* stdv,
                                int rows_per_block, void* out, void* stream) {
-  return launch_crop(img, dtype, H, W, rois, R, sampling_ratio, max_sampling_ratio, OH, OW, fold,
-                     mean, stdv, rows_per_block, out, (cudaStream_t)stream);
+  return launch_crop(img, dtype, 1, H, W, rois, R, sampling_ratio, max_sampling_ratio, OH, OW,
+                     fold, mean, stdv, rows_per_block, out, (cudaStream_t)stream);
 }
 
 // K2 variant kFrameOnce or kVectorStore.

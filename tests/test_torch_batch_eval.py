@@ -2,7 +2,8 @@
 
 Against the port's own b = 1 serving, bit for bit, with TPU.ASYNC_FETCH on
 and off and TPU.POSTPROCESS_WORKERS 0 and 2 (``SERVE_BATCH_MODE="map"``
-runs the single-image program over the batch's rows); then against
+runs the single-image program over the batch's rows; "vmap", one program
+over the batch, is held to map at the glass_tpu tolerances); then against
 glass_tpu's ``eval_batch_call`` on the same random model at the slice's
 tolerances (tests/test_torch_slice.py): boxes 0.05 px + 1e-4 relative,
 scores 1e-3, text ids equal before a knife-edge decoding step.  The ICDAR15
@@ -121,13 +122,20 @@ def test_raw_batch_outputs_equal_b1(model):
 
 
 def test_unported_batch_modes_raise(model):
-    """``vmap`` raises.  TPU.TWO_STAGE_INFERENCE is ported: batched serving
-    stays one-stage under it (glass_tpu's batched program ignores the
-    flag), so its eval_batch_call equals the one-stage runner's bit for
-    bit."""
+    """Every batch mode runs (the name is kept from when "vmap" raised).
+    "vmap", and as in glass_tpu any mode other than "map", serves
+    eval_batch_call through the one batched program and equals map's
+    predictions at this file's glass_tpu tolerances (text ids before a
+    knife-edge step of map's character distributions).
+    TPU.TWO_STAGE_INFERENCE is ported: batched serving stays one-stage under
+    it (glass_tpu's batched program ignores the flag), so its
+    eval_batch_call equals the one-stage runner's bit for bit."""
     imgs = images(5, 2)
-    with pytest.raises(NotImplementedError, match="SERVE_BATCH_MODE"):
-        _runner(model, "TPU.SERVE_BATCH_MODE", "vmap").eval_batch_call(imgs, batch_size=2)
+    want = _runner(model, "TPU.TEXT_EMIT", "probs").eval_batch_call(imgs, batch_size=2)
+    assert sum(len(p) for p in want) > 0
+    for mode in ("vmap", "batched"):
+        runner = _runner(model, "TPU.TEXT_EMIT", "probs", "TPU.SERVE_BATCH_MODE", mode)
+        _assert_close(runner.eval_batch_call(imgs, batch_size=2), want)
     two_stage = _runner(model, "TPU.TWO_STAGE_INFERENCE", "True")
     _assert_same(two_stage.eval_batch_call(imgs, batch_size=2),
                  _runner(model).eval_batch_call(imgs, batch_size=2))
@@ -152,6 +160,13 @@ def test_eval_batch_call_matches_glass_tpu(model):
     want = jrunner.eval_batch_call(imgs, batch_size=2)
     got = runner.eval_batch_call(imgs, batch_size=2)
     assert sum(len(p) for p in want) > 0
+    _assert_close(got, want)
+
+
+def _assert_close(got, want):
+    """Post-processed predictions with the character distributions, at the
+    slice's tolerances."""
+    assert len(got) == len(want)
     for g, w in zip(got, want):
         assert len(g) == len(w) and g.image_size == w.image_size
         if not len(w):

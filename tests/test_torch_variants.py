@@ -67,18 +67,18 @@ def test_featpad_v2_widens_the_pool_boxes_only(monkeypatch):
     """The recognizer's pool takes the widened boxes, the crop the
     detections' own."""
     seen = {}
-    pool, crop = tg.roi_align_rotated_adaptive, tg.crop_rois
+    pool, crop = tg.multilevel_pool, tg.crop_rois_batched
 
-    def seen_pool(fmap, boxes, *a, **k):
+    def seen_pool(pyr, min_level, boxes, *a, **k):
         seen["pool"] = boxes
-        return pool(fmap, boxes, *a, **k)
+        return pool(pyr, min_level, boxes, *a, **k)
 
-    def seen_crop(image, boxes, *a, **k):
-        seen["crop"] = boxes
-        return crop(image, boxes, *a, **k)
+    def seen_crop(images, boxes, *a, **k):
+        seen["crop"] = boxes[0]
+        return crop(images, boxes, *a, **k)
 
-    monkeypatch.setattr(tg, "roi_align_rotated_adaptive", seen_pool)
-    monkeypatch.setattr(tg, "crop_rois", seen_crop)
+    monkeypatch.setattr(tg, "multilevel_pool", seen_pool)
+    monkeypatch.setattr(tg, "crop_rois_batched", seen_crop)
     model = GlassRCNN(GlassArch.from_config(get_cfg(ICDAR15, FEATPAD + ["TPU.COMPUTE_DTYPE", "float32"]))).eval()
     boxes = torch.tensor([[40.0, 30.0, 12.0, 10.0, 0.0], [60.0, 40.0, 90.0, 10.0, 30.0]])
     feats = {"p2": torch.randn(1, 256, 16, 20), "p3": torch.randn(1, 256, 8, 10)}
