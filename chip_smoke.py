@@ -174,7 +174,14 @@ Phases:
      one image; a witness, map's stages on the batch's own backbone
      features) and end to end (``eval_batch_call`` in each mode,
      detections paired by box; the counts held, and in f32 the shares of
-     pairs with close boxes and the same text); (c) the K1/K2 launches (3
+     pairs with close boxes and the same text); the bf16 parting (the rule
+     of PERF.md section 6): bf16 batched (B = 4) and per image (B = 1) against
+     the f32 per-image yardstick at each FPN level and in the heads on
+     identical rows (box head, recognizer encoder, teacher-forced decoder),
+     and the host merge's rounds on map's, vmap's and the witness's
+     predictions, with cuBLAS's reduced-precision bf16 reduction allowed
+     and then not (phase 13 fails unless both read rounding by the rule:
+     a regression guard); (c) the K1/K2 launches (3
      and 1 a batch in vmap, 12 and 4 in map), the host syncs and the peak
      memory of one batch in each mode; (d) ``eval_batch_call`` img/s of
      both modes in f32 and bf16 with the model / fetch / host split, the
@@ -182,6 +189,14 @@ Phases:
      profiled batch of each (device busy share); (e) two
      SERVE_DATA_PARALLEL replicas on the one card under vmap at b = 3 and
      4, bit for bit one replica's vmap program on the same rows.
+ 14. the measurement entry points: ``python -m glass_tpu_torch.bench`` and
+     each ``glass_tpu_torch.tools`` module (e2e_breakdown under vmap,
+     train_bench through ``make_parallel_train_loop``, sustained_eval on 24
+     images, a profile_breakdown subset with the K1 and K2 rows, the serving
+     and training MFU tables, the branch knockouts, the backbone's backward
+     by stage with its kernel-time and bare-convolution witnesses,
+     serve_ab), in-process at reduced counts, each printing its JSON line;
+     K1, K1b and K2 must each be launched.  Every phase prints its seconds.
 
 Prints, on the last two lines, a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``, and copies everything it prints into
@@ -3890,6 +3905,154 @@ def end_to_end_modes(raw_map, raw_vmap):
     return counts, box_share, text_share, text
 
 
+# 13(b), the bf16 parting (the rule of PERF.md section 6): the batched bf16
+# distance from the f32 yardstick is rounding when it is at most this many
+# times the per-image bf16 distance, at every FPN level and in every head
+PARTING_RATIO = 1.5
+
+
+def _rel_dist(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| / max |ref|, in f32."""
+    ref = ref.float()
+    return float((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def witness_program(model, imgs, hws) -> dict:
+    """The witness as a serving program: the batch's one backbone call,
+    then map's one-image stages on each image's slice of its features."""
+    from glass_tpu_torch.models import glass_rcnn as gr
+
+    norm = gr.preprocess(model, imgs)
+    feats = gr.backbone_features(model, norm)
+    raw = imgs.dtype == torch.uint8 and model.arch.torch_dtype == torch.float32
+    outs = []
+    for i in range(imgs.shape[0]):
+        f = {k: v[i:i + 1] for k, v in feats.items()}
+        pyr = gr.pack_box_pyramid(model, f)
+        out = dict(gr.detect_batch(model, f, pyr, (int(hws[i][0]), int(hws[i][1])))._asdict())
+        out.update(gr.glass_heads_batch(model, f, norm[i:i + 1], pyr, out["boxes"], out["classes"],
+                                        imgs[i:i + 1] if raw else None))
+        outs.append({k: v[0] for k, v in out.items()})
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def parting_distances(m32, m16, padded, sizes) -> dict:
+    """13(b), Part 0: bf16 against the f32 yardstick (per-image calls, TF32
+    off), batched (B = 4) and per image (B = 1), as max |diff| / max |f32|:
+    each FPN level of the backbone on the batch's images, then the heads on
+    identical rows (the yardstick's features cast to bf16, the yardstick's
+    proposals and detections): the box head and predictor over the
+    proposals, the recognizer's encoder states over the detections, and its
+    decoder's character probabilities teacher-forced on the yardstick's
+    greedy ids.  Returns {name: (batched, per image)}."""
+    from glass_tpu_torch.models import glass_rcnn as gr
+    from glass_tpu_torch.models.recognizer import aster_decode_greedy, aster_decode_train
+    from glass_tpu_torch.ops.roi_align_rotated import multilevel_pool
+
+    b = padded.shape[0]
+    out = {}
+    with torch.inference_mode():
+        n32 = [gr.preprocess(m32, padded[i]) for i in range(b)]
+        f32 = [gr.backbone_features(m32, n) for n in n32]
+        n16 = gr.preprocess(m16, padded)
+        fb = gr.backbone_features(m16, n16)
+        f1 = [gr.backbone_features(m16, n16[i]) for i in range(b)]
+        for k in fb:
+            ref = torch.cat([f[k] for f in f32])
+            out[k] = (_rel_dist(fb[k], ref), _rel_dist(torch.cat([f[k] for f in f1]), ref))
+
+        feats32 = {k: torch.cat([f[k] for f in f32]) for k in fb}
+        feats16 = {k: v.to(torch.bfloat16) for k, v in feats32.items()}
+        props = torch.stack([gr.rpn_proposals_single(m32, f32[i], sizes[i])[0] for i in range(b)])
+        p = props.shape[1]
+        arch = m32.arch
+
+        def pooled(model, feats):
+            return multilevel_pool(
+                gr.pack_box_pyramid(model, feats), gr._min_level(model), props.reshape(-1, 5),
+                (arch.box_pooler_resolution,) * 2, arch.box_pooler_sampling_ratio, arch.pool_max_sampling_ratio,
+                arch.pool_bulk_sampling_ratio, arch.pool_large_roi_budget, rois_per_image=p)
+
+        def box_head(model, x):
+            rh = model.roi_heads
+            return torch.cat([t for t in rh.box_predictor(rh.box_head(x).to(torch.float32)) if t is not None], -1)
+
+        x32, x16 = pooled(m32, feats32), pooled(m16, feats16)
+        ref = torch.cat([box_head(m32, x32[i * p:(i + 1) * p]) for i in range(b)])
+        out["box head"] = (_rel_dist(box_head(m16, x16), ref),
+                           _rel_dist(torch.cat([box_head(m16, x16[i * p:(i + 1) * p]) for i in range(b)]), ref))
+
+        boxes = torch.stack([gr.detect_single_image(m32, f32[i], gr.pack_box_pyramid(m32, f32[i]), sizes[i]).boxes
+                             for i in range(b)])
+        d = boxes.shape[1]
+        enc32 = torch.cat([gr.recognizer_encode(m32, f32[i], n32[i], boxes[i]) for i in range(b)])
+        encb = gr.recognizer_encode_batch(m16, feats16, n16, boxes)
+        enc1 = torch.cat([gr.recognizer_encode(m16, {k: v[i:i + 1] for k, v in feats16.items()}, n16[i], boxes[i])
+                          for i in range(b)])
+        out["recognizer encoder"] = (_rel_dist(encb, enc32), _rel_dist(enc1, enc32))
+
+        steps = arch.max_word_len + 1
+        aster32, aster16 = m32.roi_heads.recognizer_head.aster, m16.roi_heads.recognizer_head.aster
+        rows = [slice(i * d, (i + 1) * d) for i in range(b)]
+        ids = torch.cat([aster_decode_greedy(aster32, enc32[r].float(), steps).argmax(-1) for r in rows])
+        targets = torch.cat([torch.zeros_like(ids[:, :1]), ids], 1)  # step i feeds step i - 1's id
+
+        def text(aster, enc, r):
+            return torch.softmax(aster_decode_train(aster, enc.float(), targets[r], steps), -1)
+
+        ref = torch.cat([text(aster32, enc32[r], r) for r in rows])
+        per = torch.cat([text(aster16, enc1[r], r) for r in rows])
+        out["recognizer decoder"] = (_rel_dist(text(aster16, encb, slice(None)), ref), _rel_dist(per, ref))
+    return out
+
+
+def bf16_parting(r32, r16, images, batch, device, served=None) -> tuple:
+    """13(b), Part 0: the bf16 parting of vmap from map, held to the rule
+    PERF.md states (PARTING_RATIO), with cuBLAS's reduced-precision bf16
+    reduction allowed (PyTorch's default) and then, in the same call, not
+    allowed (the control).  Each setting: ``parting_distances`` on the
+    batch, and the host merge's (rows in, rounds) on each serving program's
+    predictions over every scene (map, vmap, and the witness: map's
+    one-image stages on the batch's backbone features); ``served`` gives
+    map's and vmap's under the default setting when they were counted
+    already.  Returns (lines, {setting: rounding by the rule})."""
+    sizes = [im.shape[:2] for im in batch]
+    bucket = tuple(max(v) for v in zip(*(r16._pick_bucket(*sz) for sz in sizes)))
+    padded = torch.zeros((len(batch),) + bucket + (3,), dtype=torch.uint8)
+    for i, im in enumerate(batch):
+        padded[i, :im.shape[0], :im.shape[1]] = torch.from_numpy(im)
+    padded = padded.to(device)
+    matmul = torch.backends.cuda.matmul
+    default = matmul.allow_bf16_reduced_precision_reduction
+    lines, verdicts = [], {}
+    try:
+        for allowed in (default, not default):
+            matmul.allow_bf16_reduced_precision_reduction = allowed
+            dist = parting_distances(r32.model, r16.model, padded, sizes)
+            rounds = dict(served or {}) if allowed == default else {}
+            for name in [n for n in ("map", "vmap", "witness") if n not in rounds]:
+                r16.cfg.TPU.SERVE_BATCH_MODE = "map" if name == "witness" else name
+                if name == "witness":
+                    r16.batch_model_fn = lambda: (lambda imgs, hws: witness_program(r16.model, imgs, hws))
+                try:
+                    with MergeCount() as merge:
+                        r16.eval_batch_call(images, batch_size=VMAP_BATCH)
+                finally:
+                    r16.__dict__.pop("batch_model_fn", None)
+                rounds[name] = (merge.rows_in, merge.rounds)
+            verdicts[allowed] = all(bt <= PARTING_RATIO * pi for bt, pi in dist.values())
+            lines.append(
+                f"allow_bf16_reduced_precision_reduction={allowed}: bf16 against the f32 per-image yardstick, "
+                "max|diff|/max|f32| batched (B = 4) / per image (B = 1): "
+                + "; ".join(f"{k} {bt:.3g} / {pi:.3g} ({bt / max(pi, 1e-30):.2f}x)" for k, (bt, pi) in dist.items())
+                + "; host merge (rows in, merging rounds) over the " + f"{len(images)} scenes: "
+                + ", ".join(f"{k} {v}" for k, v in rounds.items())
+                + f" -> {'rounding' if verdicts[allowed] else 'NOT within'} {PARTING_RATIO}x at every level and head")
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = default
+    return lines, verdicts
+
+
 def phase_vmap(state_dict, out_dir, device="cuda", n_images=N_IMAGES, hw=(720, 1280), opts=()):
     """Phase 13 (b)-(e) on phase 6's eval set (written into ``--out``)."""
     device = torch.device(device)
@@ -3939,20 +4102,21 @@ def _phase_vmap(state_dict, root, device, n_images, hw, opts):
     # f32 and bf16: in f32 the two modes' predictions agree, so the host
     # stages cost the same; in bf16 they part (a random model), and the
     # host merge's cost follows the predictions.
-    rate = {}
+    rate, runners = {}, {}
     for dtype in ("float32", "bfloat16"):
         f32 = dtype == "float32"
-        r = runner(dtype, *(["TPU.TEXT_EMIT", "probs"] if f32 else []))
+        r = runners[dtype] = runner(dtype, *(["TPU.TEXT_EMIT", "probs"] if f32 else []))
         sizes = [shortest_edge_size(*im.shape[:2], r.min_target_size, r.max_target_size) for im in images]
         batch = [cv2.resize(im, (nw, nh)) for im, (nh, nw) in zip(images[:VMAP_BATCH], sizes)]
         bad, staged = staged_modes(r, batch, f32=f32)
         for mode in ("map", "vmap"):  # warm-up: the model program alone; the host stages need none
             r.cfg.TPU.SERVE_BATCH_MODE = mode
             r.run_batch_on_resized(batch)
-        raw, timed = {}, {}
+        raw, timed, merged = {}, {}, {}
         for mode in ("map", "vmap"):
             with MergeCount() as merge:
                 preds, raw[mode], took, split = serve(r, mode, images)
+            merged[mode] = (merge.rows_in, merge.rounds)
             lengths = [len(t) for p in preds if len(p) for t in r.decode_texts(p)[0]]
             timed[mode] = (n_images / took, split, [len(p) for p in preds],
                            f"raw rows {[len(p) for p in raw[mode]]}, mean word length "
@@ -3976,6 +4140,14 @@ def _phase_vmap(state_dict, root, device, n_images, hw, opts):
                 f"{VMAP_BATCH}: {img_s:.3f} img/s; " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
                 + f"; words {words}; {merge}")
     r16 = r
+    t0 = time.perf_counter()
+    lines, verdicts = bf16_parting(runners["float32"], r16, images, batch, device, served=merged)
+    for line in lines:
+        log(f"phase 13 (b) bf16 parting ({card}), {line}")
+    log(f"phase 13 (b) bf16 parting: {time.perf_counter() - t0:.1f} s")
+    failed += [f"(b) bf16 parting with allow_bf16_reduced_precision_reduction={k}: batched beyond "
+               f"{PARTING_RATIO}x the per-image distance" for k, ok in verdicts.items() if not ok]
+    del runners
 
     # (c) launches and host syncs of one batch, (d) the device share
     for mode in ("map", "vmap"):
@@ -4051,6 +4223,55 @@ def _phase_vmap(state_dict, root, device, n_images, hw, opts):
     return out
 
 
+# 14: each measurement entry point in-process on the card, at reduced
+# counts (the tools' own defaults are the full measurements)
+TOOL_RUNS = (
+    ("bench", "glass_tpu_torch.bench", ["--frames", "3", "--rounds", "2", "--windows", "1", "--train-steps", "3"]),
+    ("e2e_breakdown", "glass_tpu_torch.tools.e2e_breakdown", ["--rounds", "1", "TPU.SERVE_BATCH_MODE", "vmap"]),
+    ("train_bench", "glass_tpu_torch.tools.train_bench", ["--steps", "5", "--windows", "1", "--flops"]),
+    ("sustained_eval", "glass_tpu_torch.tools.sustained_eval", ["--images", "24"]),
+    ("profile_breakdown", "glass_tpu_torch.tools.profile_breakdown",
+     ["--k", "5", "topk_p2", "topk_all5", "iou1000", "nms1000", "select_proposals", "stage_crops",
+      "stage_global_pool", "stage_decode", "stage_full"]),
+    ("mfu_breakdown", "glass_tpu_torch.tools.mfu_breakdown", ["--k", "3", "--steps", "3"]),
+    ("train_mfu_breakdown", "glass_tpu_torch.tools.train_mfu_breakdown", ["--steps", "2", "--trials", "3"]),
+    ("backbone_bwd_breakdown", "glass_tpu_torch.tools.backbone_bwd_breakdown", ["--k", "10", "--trials", "3"]),
+    ("serve_ab", "glass_tpu_torch.tools.serve_ab", ["--frames", "3"]),
+)
+TOOL_KERNELS = ("roi_align_rotated", "roi_align_rotated_backward", "crop_rois")
+
+
+def phase_tools() -> dict:
+    """Phase 14: ``python -m glass_tpu_torch.bench`` and every
+    ``glass_tpu_torch.tools`` entry point, in-process (``main(argv)``) on
+    the card at ``TOOL_RUNS``' counts; each prints its JSON line.  Fails if
+    a tool raises, reports another device than the card, or if K1, K1b or
+    K2 was launched no time across the phase."""
+    import gc
+    import importlib
+
+    from glass_tpu_torch.ops import _cuda
+
+    _cuda.LAUNCHES.clear()
+    took = {}
+    for name, module, argv in TOOL_RUNS:
+        t0 = time.perf_counter()
+        res = importlib.import_module(module).main(argv)
+        took[name] = time.perf_counter() - t0
+        device = res["detail"]["device"] if name == "bench" else res["device"]
+        if device["platform"] != "gpu":
+            raise AssertionError(f"phase 14: {name} ran on {device}")
+        log(f"phase 14 {name}: {took[name]:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = dict(_cuda.LAUNCHES)
+    missing = [k for k in TOOL_KERNELS if not launches.get(k)]
+    log(f"phase 14 ({card_line()}): {len(TOOL_RUNS)} entry points in {sum(took.values()):.1f} s; launches {launches}")
+    if missing:
+        raise AssertionError(f"phase 14: no launch of {missing}")
+    return {"launches": launches, "s": took}
+
+
 def finish_fetch_dispatch(runner, images) -> dict:
     """``dispatch_batch`` then the fetch: the raw fields (B, D, ...)."""
     from glass_tpu_torch.inference.runner import finish_fetch
@@ -4078,7 +4299,7 @@ def kernel_entry(name, source, replaces, launches, rows):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14")
     ap.add_argument("--out", default="chip_smoke_out", help="directory for the build log and the profile table")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -4100,44 +4321,67 @@ def main():
     rng = np.random.RandomState(0)
     rois_np = word_rois(rng, N_ROIS, *BUCKET_HW)
     k1_rows = k2_rows = k1b_rows = None
-    main = train = variants = distributed = fp16 = vmap = None
+    main = train = variants = distributed = fp16 = vmap = tools = None
+    seconds, lap = {}, [time.perf_counter()]
+
+    def mark(n):  # the seconds of phase n, from the end of the one before
+        now = time.perf_counter()
+        seconds[n] = round(now - lap[0], 1)
+        lap[0] = now
+
     if 1 in phases:
         phase_build(args.out)
+        mark(1)
     if 2 in phases:
         k1_rows, k1_edge = phase_k1(rng, rois_np)
+        mark(2)
     if 3 in phases:
         k2_rows, k2_edge, k2_lib_ms = phase_k2(rng, rois_np)
+        mark(3)
     if phases & {4, 5, 6, 9, 10, 11, 12, 13}:
         images = [synthetic_image(np.random.RandomState(100 + i), 720, 1280) for i in range(N_IMAGES)]
         state_dict = seeded_weights(images[0])
+        mark("weights")
         if 4 in phases:
             main = phase_main(images, state_dict, N_TIMED, args.out)
+            mark(4)
         if 5 in phases:
             phase_whole(images[0], state_dict)
+            mark(5)
         if 6 in phases:
             phase_eval(state_dict, args.out)
+            mark(6)
         if 9 in phases:
             phase_variants(state_dict, images, args.out)
+            mark(9)
         if 10 in phases:
             variants = phase_model_variants(state_dict, images, args.out)
+            mark(10)
     if 7 in phases:
         k1_train_rows, k1b_rows, k1b_edge = phase_k1b(np.random.RandomState(7))
+        mark(7)
     if 8 in phases:
         train = phase_train(args.out)
+        mark(8)
     if 11 in phases:
-        t0 = time.perf_counter()
         distributed = phase_distributed(state_dict, images, args.out, phase8=train)
-        log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+        mark(11)
+        log(f"phase 11: {seconds[11]} s")
     if 12 in phases:
-        t0 = time.perf_counter()
         fp16 = dict(kernels=phase12_kernels(np.random.RandomState(12)))
         fp16.update(phase_fp16_remat_loop(state_dict, images, args.out, main=main, train=train))
-        log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+        mark(12)
+        log(f"phase 12: {seconds[12]} s")
     if 13 in phases:
-        t0 = time.perf_counter()
         vmap = dict(k2=phase13_k2(np.random.RandomState(13)))
         vmap.update(phase_vmap(state_dict, args.out))
-        log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+        mark(13)
+        log(f"phase 13: {seconds[13]} s")
+    if 14 in phases:
+        tools = phase_tools()
+        mark(14)
+    log(f"seconds by phase (in the order run; 'weights' is the seeded model of phases 4-13): {seconds}, "
+        f"{sum(seconds.values()):.1f} in all")
 
     kernels = []
     # the main paths' launches: K1 and K2 from phase 4's serving, K1b from
@@ -4149,6 +4393,7 @@ def main():
     launches.update((distributed or {}).get("launches", {}))
     launches.update((fp16 or {}).get("launches", {}))
     launches.update((vmap or {}).get("launches", {}))
+    launches.update((tools or {}).get("launches", {}))
     fp16_rows = (fp16 or {}).get("kernels", {})
     per_image = (main or {}).get("n_images", 1)
     if k1_rows:
@@ -4177,8 +4422,8 @@ def main():
     log(f"kernel times are per image at the main-path shapes (bfloat16; K1 summed over its "
         f"three poolers); launches over phase 4's {per_image} main-path images, phase 8's training "
         f"steps, phase 10's serving and training, phase 11's distributed training and serving, "
-        f"phase 12's fp16 serving and training, remat and chunked training and phase 13's vmap and "
-        f"map serving; max_abs_err over every dtype's case (phase 12's fp16 ones and phase 13's "
+        f"phase 12's fp16 serving and training, remat and chunked training, phase 13's vmap and "
+        f"map serving and phase 14's measurement tools; max_abs_err over every dtype's case (phase 12's fp16 ones and phase 13's "
         f"batched K2 included), on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

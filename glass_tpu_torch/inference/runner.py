@@ -200,6 +200,24 @@ def finish_fetch(fetch) -> dict:
     return out
 
 
+def pipelined(items, produce, consume) -> None:
+    """``consume(item, produce(item))`` for each item in order, with
+    ``produce`` (a batch's model and fetch, which wait on the device) on a
+    worker thread while this thread consumes the batch before, at most two
+    batches ahead: ``eval_batch_call``'s overlap, shared with the
+    benchmark so that it times the served loop."""
+    with ThreadPoolExecutor(1) as worker:
+        pending = deque()
+        for item in items:
+            pending.append((item, worker.submit(produce, item)))
+            if len(pending) > 2:
+                item0, fut = pending.popleft()
+                consume(item0, fut.result())
+        while pending:
+            item0, fut = pending.popleft()
+            consume(item0, fut.result())
+
+
 class GlassRunner:
     def __init__(
         self,
@@ -520,17 +538,8 @@ class GlassRunner:
         )
         chunks = [order[s : s + batch_size] for s in range(0, len(order), batch_size)]
         if bool(getattr(self.cfg.TPU, "ASYNC_FETCH", True)) and len(chunks) > 1:
-            with ThreadPoolExecutor(1) as worker:
-                pending = deque()
-                for idxs in chunks:
-                    pending.append((idxs, worker.submit(
-                        self.run_batch_on_resized, [prepped[i][0] for i in idxs])))
-                    if len(pending) > 2:
-                        idxs0, fut = pending.popleft()
-                        self._postprocess_chunk(idxs0, fut.result(), prepped, results)
-                while pending:
-                    idxs0, fut = pending.popleft()
-                    self._postprocess_chunk(idxs0, fut.result(), prepped, results)
+            pipelined(chunks, lambda idxs: self.run_batch_on_resized([prepped[i][0] for i in idxs]),
+                      lambda idxs, preds: self._postprocess_chunk(idxs, preds, prepped, results))
             return results
         inflight = None
         for idxs in chunks:

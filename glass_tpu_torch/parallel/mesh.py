@@ -32,8 +32,9 @@ overlapping it with the backward is later work.
 Trainer's chunk of ``TPU.TRAIN_LOOP_STEPS``: a host loop over the step that
 keeps the metrics on the device until it ends.  The step's own host syncs
 (NMS fixpoints, the matcher's ``nonzero``) stay, so the chunk is not yet
-one CUDA graph.  glass_tpu's ``make_parallel_train_loop`` (n steps on one
-batch) serves only its benchmarking tools, which are not ported.
+one CUDA graph.  ``make_parallel_train_loop`` is glass_tpu's n steps on one
+batch, the loop of the measurement tools (``tools/train_bench.py``,
+``tools/train_mfu_breakdown.py``): a host loop too, not a CUDA graph.
 """
 
 from __future__ import annotations
@@ -328,6 +329,26 @@ def make_parallel_train_scan(step: Callable) -> Callable:
         return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
     return scan
+
+
+def make_parallel_train_loop(step: Callable, n_steps: int) -> Callable:
+    """glass_tpu's ``make_parallel_train_loop``: ``loop(model, optimizer,
+    tcfg, batch, priorities, iteration=0)`` runs ``n_steps`` consecutive
+    ``step`` calls (the signature of ``train.train_step.train_step``, or a
+    ``make_parallel_train_step`` result) on the one ``batch``.  Step i runs
+    at ``iteration + i`` with ``priorities(i)``, the port's counterpart of
+    glass_tpu's ``fold_in(key, i)``.  Nothing is read back: the last step's
+    metrics come back on the device, as glass_tpu's ``fori_loop`` carry
+    returns them."""
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be at least 1, got {n_steps}")
+
+    def loop(model, optimizer, tcfg, batch, priorities: Callable, iteration: int = 0) -> Dict[str, torch.Tensor]:
+        for i in range(n_steps):
+            metrics = step(model, optimizer, tcfg, batch, priorities(i), iteration + i)
+        return metrics
+
+    return loop
 
 
 def broadcast_state_(module: torch.nn.Module, src: int = 0, group=None) -> None:
