@@ -196,7 +196,21 @@ Phases:
      and training MFU tables, the branch knockouts, the backbone's backward
      by stage with its kernel-time and bare-convolution witnesses,
      serve_ab), in-process at reduced counts, each printing its JSON line;
-     K1, K1b and K2 must each be launched.  Every phase prints its seconds.
+     K1, K1b and K2 must each be launched.
+ 15. the released-checkpoint verification entry point: ``python -m
+     glass_tpu_torch.tools.verify_released_checkpoint`` in-process
+     (``main(argv)``) on phase 6's eval set (8 glyph scenes of 720x1280,
+     the loosened thresholds, words as box polygons: MASK_INFERENCE off,
+     since an RRC gt zip of the ICDAR dialect holds 4 points a word) at
+     ``--batch-size 4`` in bfloat16, with the
+     seeded weights saved as a released-like d2 file (``{"model":
+     state_dict, "iteration": 0}``): (a) ``--dry-run`` with no expected
+     value exits 0 and records the hmean; (b) ``--gt-zip`` set to (a)'s det
+     zip with ``--expected-hmean 1.0 --tolerance 0.01`` exits 0 with pass
+     true (the model scores itself); (c) the same at 0.5 exits 1 with pass
+     false.  Prints each run's img/s (the CLI's bench log), the tensor count
+     and the K1/K2 launches (exactly 2 and 1 per image).  Every phase prints
+     its seconds.
 
 Prints, on the last two lines, a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``, and copies everything it prints into
@@ -221,7 +235,9 @@ opts=[...small bucket...], train_opts=[...small shapes...], n_timed=2,
 steps=2, loop_iters=6, loop_k=3, loop_ckpt=2, n_images=3, hw=(96, 128),
 train_dtype="bfloat16")``, and phase 13 (b)-(e) with
 ``phase_vmap(state_dict, out_dir, device="cpu", n_images=6, hw=(96, 128),
-opts=[...small bucket...])``; they take ``device`` for that alone.
+opts=[...small bucket...])``, and phase 15 with ``phase_verify(state_dict,
+out_dir, device="cpu", n_images=2, hw=(96, 128), opts=[...small
+bucket...])``; they take ``device`` for that alone.
 """
 
 from __future__ import annotations
@@ -4272,6 +4288,98 @@ def phase_tools() -> dict:
     return {"launches": launches, "s": took}
 
 
+# 15: the released-checkpoint verification entry point
+VERIFY_RUNS = (  # (run, --expected-hmean, exit code, pass): (a) records, (b) passes, (c) fails
+    ("a", None, 0, True),
+    ("b", "1.0", 0, True),
+    ("c", "0.5", 1, False),
+)
+
+
+def phase_verify(state_dict, out_dir, device="cuda", n_images=N_IMAGES, hw=(720, 1280), opts=()):
+    """Phase 15: ``python -m glass_tpu_torch.tools.verify_released_checkpoint``
+    in-process (``main(argv)``) on phase 6's eval set at batch 4 in bf16,
+    with the seeded weights saved as a released-like d2 file: (a)
+    ``--dry-run`` with no expected value, (b) ``--gt-zip`` set to (a)'s det
+    zip at an expected hmean of 1.0 (the model scores itself), (c) the same
+    at 0.5, which must fail with exit 1.  Words are written as box polygons
+    (MASK_INFERENCE off), so K1 runs the box and recognizer poolers."""
+    root = os.path.join(out_dir, "verify")
+    try:
+        return _phase_verify(state_dict, root, torch.device(device), n_images, hw, opts)
+    finally:  # the images and the .pth are large; the reports stay
+        import shutil
+
+        shutil.rmtree(os.path.join(root, "ds"), ignore_errors=True)
+        if os.path.exists(os.path.join(root, "released_like.pth")):
+            os.remove(os.path.join(root, "released_like.pth"))
+
+
+def _phase_verify(state_dict, root, device, n_images, hw, opts):
+    from glass_tpu_torch import eval as port_eval
+    from glass_tpu_torch.ops import _cuda
+    from glass_tpu_torch.tools import verify_released_checkpoint as verify
+
+    t0 = time.perf_counter()
+    ds_yaml = write_eval_set(root, n_images, hw)
+    pth = os.path.join(root, "released_like.pth")
+    torch.save({"model": state_dict, "iteration": 0}, pth)
+    common = ["--dry-run", "--checkpoint", pth, "--config", ICDAR15, "--datasets", ds_yaml,
+              "--batch-size", "4", "--device", str(device)]
+    # Box polygons, not mask polygons: (b) and (c) read (a)'s det zip as
+    # their gt, and the ICDAR dialect of an RRC gt zip holds 4 points a word.
+    # A random model's mask contours carry hundreds to thousands of points,
+    # and scoring them against themselves took 105 s a run on the H100's host
+    # (the exact clipper is quadratic in the points of a pair).
+    opts = ["TPU.COMPUTE_DTYPE", "bfloat16", *LOOSE_OPTS, "MODEL.ROI_MASK_HEAD.MASK_INFERENCE", "False", *opts]
+    gt_zip = os.path.join(root, "a", "synth_test_det.zip")
+    inner = port_eval.main
+
+    def eval_with_bench_log(argv):  # the CLI loop's img/s, as phase 6 reads it
+        with open(bench, "w"):
+            pass
+        return inner(["--bench-log", bench, *argv])
+
+    card = card_line() if device.type == "cuda" else "CPU"
+    runs, failed = {}, []
+    _cuda.LAUNCHES.clear()
+    port_eval.main = eval_with_bench_log
+    try:
+        for name, expected, want_rc, want_pass in VERIFY_RUNS:
+            out = os.path.join(root, name)
+            bench = os.path.join(root, f"bench_{name}.jsonl")
+            gate = [] if expected is None else ["--gt-zip", gt_zip, "--expected-hmean", expected,
+                                                "--tolerance", "0.01"]
+            rc = verify.main([*common, *gate, "--output", out, *opts])
+            with open(os.path.join(out, "verification_report.json")) as f:
+                report = json.load(f)
+            with open(bench) as f:
+                last = [json.loads(line) for line in f][-1]
+            runs[name] = dict(rc=rc, measured_hmean=report["measured_hmean"], diff=report.get("diff"),
+                              passed=report["pass"], img_s=last["done"] / last["elapsed_s"], images=last["done"])
+            log(f"phase 15 ({name}) expected {expected}: exit {rc}, pass {report['pass']}, measured hmean "
+                f"{report['measured_hmean']:.4f}, diff {report.get('diff')}; eval {last['done']} images at "
+                f"batch 4, {runs[name]['img_s']:.3f} img/s (CLI loop, image reads included; {card})")
+            if rc != want_rc or report["pass"] is not want_pass:
+                failed.append(f"({name}) exit {rc} pass {report['pass']}, want exit {want_rc} pass {want_pass}")
+    finally:
+        port_eval.main = inner
+    launches = dict(_cuda.LAUNCHES)
+    n_tensors = verify.count_tensors(pth)
+    seconds = time.perf_counter() - t0
+    log(f"phase 15 ({card}): {seconds:.1f} s; released-like checkpoint {n_tensors} tensors; "
+        f"K1/K2 launches {launches}")
+    if device.type == "cuda":
+        done = sum(r["images"] for r in runs.values())
+        want = {"roi_align_rotated": 2 * done, "crop_rois": done}  # no mask pooler without masks
+        got = {k: launches.get(k, 0) for k in want}
+        if got != want:
+            failed.append(f"launches {got}, expected 2 and 1 per image {want}")
+    if failed:
+        raise AssertionError(f"phase 15: {failed}")
+    return {"launches": launches, "runs": runs, "n_tensors": n_tensors, "s": seconds}
+
+
 def finish_fetch_dispatch(runner, images) -> dict:
     """``dispatch_batch`` then the fetch: the raw fields (B, D, ...)."""
     from glass_tpu_torch.inference.runner import finish_fetch
@@ -4299,7 +4407,7 @@ def kernel_entry(name, source, replaces, launches, rows):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15")
     ap.add_argument("--out", default="chip_smoke_out", help="directory for the build log and the profile table")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -4321,7 +4429,7 @@ def main():
     rng = np.random.RandomState(0)
     rois_np = word_rois(rng, N_ROIS, *BUCKET_HW)
     k1_rows = k2_rows = k1b_rows = None
-    main = train = variants = distributed = fp16 = vmap = tools = None
+    main = train = variants = distributed = fp16 = vmap = tools = verified = None
     seconds, lap = {}, [time.perf_counter()]
 
     def mark(n):  # the seconds of phase n, from the end of the one before
@@ -4338,7 +4446,7 @@ def main():
     if 3 in phases:
         k2_rows, k2_edge, k2_lib_ms = phase_k2(rng, rois_np)
         mark(3)
-    if phases & {4, 5, 6, 9, 10, 11, 12, 13}:
+    if phases & {4, 5, 6, 9, 10, 11, 12, 13, 15}:
         images = [synthetic_image(np.random.RandomState(100 + i), 720, 1280) for i in range(N_IMAGES)]
         state_dict = seeded_weights(images[0])
         mark("weights")
@@ -4380,7 +4488,10 @@ def main():
     if 14 in phases:
         tools = phase_tools()
         mark(14)
-    log(f"seconds by phase (in the order run; 'weights' is the seeded model of phases 4-13): {seconds}, "
+    if 15 in phases:
+        verified = phase_verify(state_dict, args.out)
+        mark(15)
+    log(f"seconds by phase (in the order run; 'weights' is the seeded model of phases 4-6 and 9-15): {seconds}, "
         f"{sum(seconds.values()):.1f} in all")
 
     kernels = []
@@ -4394,6 +4505,7 @@ def main():
     launches.update((fp16 or {}).get("launches", {}))
     launches.update((vmap or {}).get("launches", {}))
     launches.update((tools or {}).get("launches", {}))
+    launches.update((verified or {}).get("launches", {}))
     fp16_rows = (fp16 or {}).get("kernels", {})
     per_image = (main or {}).get("n_images", 1)
     if k1_rows:
@@ -4423,7 +4535,7 @@ def main():
         f"three poolers); launches over phase 4's {per_image} main-path images, phase 8's training "
         f"steps, phase 10's serving and training, phase 11's distributed training and serving, "
         f"phase 12's fp16 serving and training, remat and chunked training, phase 13's vmap and "
-        f"map serving and phase 14's measurement tools; max_abs_err over every dtype's case (phase 12's fp16 ones and phase 13's "
+        f"map serving, phase 14's measurement tools and phase 15's three verification runs; max_abs_err over every dtype's case (phase 12's fp16 ones and phase 13's "
         f"batched K2 included), on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
