@@ -35,6 +35,13 @@ per device, the batch padded with zero images of 1x1 content to a multiple
 of the device count, each device running the program (map or vmap) on its
 contiguous rows from a thread of its own, the outputs gathered in row
 order.  With one device it is a no-op, as in glass_tpu.
+
+While a ``torch.profiler`` session records, every stage of a request is a
+``utils.trace`` span: ``glass.resize``, ``glass.upload``, ``glass.dispatch``
+(the model program's enqueue), ``glass.fetch``, ``glass.pipeline_wait``
+and ``glass.post`` (one image's host stage), with the request id of the
+runner's call count (one-image serving) or the image's index in the call
+(a batch's spans: its first image's).
 """
 
 from __future__ import annotations
@@ -50,7 +57,6 @@ from typing import List, Optional, Tuple
 import cv2
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import CfgNode, get_cfg
 from ..device import resolve_device
@@ -71,6 +77,7 @@ from ..postprocess.post_processor import scale_rotated_np
 from ..structures import Instances
 from ..text import TextCodec, decode_instance_texts
 from ..train.checkpoint import load_weights_
+from ..utils import trace
 from ..utils.common import rgb2grey
 
 logger = logging.getLogger(__name__)
@@ -200,22 +207,28 @@ def finish_fetch(fetch) -> dict:
     return out
 
 
-def pipelined(items, produce, consume) -> None:
+def pipelined(items, produce, consume, rid_of=lambda item: None) -> None:
     """``consume(item, produce(item))`` for each item in order, with
     ``produce`` (a batch's model and fetch, which wait on the device) on a
     worker thread while this thread consumes the batch before, at most two
     batches ahead: ``eval_batch_call``'s overlap, shared with the
-    benchmark so that it times the served loop."""
+    benchmark so that it times the served loop.  This thread's waits for
+    the worker are ``glass.pipeline_wait`` spans with ``rid_of(item)``."""
+
+    def result(item, fut):
+        with trace.span("glass.pipeline_wait", rid_of(item)):
+            return fut.result()
+
     with ThreadPoolExecutor(1) as worker:
         pending = deque()
         for item in items:
             pending.append((item, worker.submit(produce, item)))
             if len(pending) > 2:
                 item0, fut = pending.popleft()
-                consume(item0, fut.result())
+                consume(item0, result(item0, fut))
         while pending:
             item0, fut = pending.popleft()
-            consume(item0, fut.result())
+            consume(item0, result(item0, fut))
 
 
 class GlassRunner:
@@ -277,6 +290,7 @@ class GlassRunner:
         self.drop_overlapping = pp.DROP_OVERLAPPING
         self.ioa_threshold = pp.IOA_THRESHOLD
         self.valid_score = self.cfg.INFERENCE_TH_TEST
+        self.calls = 0  # one-image requests served: the trace's request id
 
     # -- geometry ---------------------------------------------------------
     def get_inference_scale_ratio(self, image_shape) -> float:
@@ -298,22 +312,29 @@ class GlassRunner:
         return min(candidates, key=lambda b: b[0] * b[1])
 
     # -- model invocation -------------------------------------------------
-    def run_model(self, image: np.ndarray) -> dict:
+    def run_model(self, image: np.ndarray, rid=None) -> dict:
         """Pad an already-resized HWC BGR image into its bucket and run the
         model (in two stages with TPU.TWO_STAGE_INFERENCE): the
         fixed-capacity outputs as numpy arrays."""
-        h, w = image.shape[:2]
-        bh, bw = self._pick_bucket(h, w)
-        pad_dtype = np.uint8 if image.dtype == np.uint8 else np.float32
-        padded = np.zeros((bh, bw, 3), pad_dtype)
-        padded[:h, :w] = image
         with torch.inference_mode():
+            out = self._enqueue(image, rid)
+            with trace.span("glass.fetch", rid):
+                return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def _enqueue(self, image: np.ndarray, rid) -> dict:
+        """``run_model`` up to its fetch: the padded upload, then the model
+        program's outputs on the device."""
+        h, w = image.shape[:2]
+        with trace.span("glass.upload", rid):
+            bh, bw = self._pick_bucket(h, w)
+            pad_dtype = np.uint8 if image.dtype == np.uint8 else np.float32
+            padded = np.zeros((bh, bw, 3), pad_dtype)
+            padded[:h, :w] = image
             img = torch.from_numpy(padded).to(self.device)
+        with trace.span("glass.dispatch", rid):
             if self.cfg.TPU.TWO_STAGE_INFERENCE:
-                out = self._run_two_stage(img, (h, w))
-            else:
-                out = glass_inference_single(self.model, img, (h, w))
-            return {k: v.cpu().numpy() for k, v in out.items()}
+                return self._run_two_stage(img, (h, w))
+            return glass_inference_single(self.model, img, (h, w))
 
     def _run_two_stage(self, image: torch.Tensor, hw) -> dict:
         """Two-stage inference: detect, then run the recognizer and the
@@ -340,45 +361,51 @@ class GlassRunner:
             det[key] = full
         return det
 
-    def run_on_resized(self, image: np.ndarray) -> Instances:
+    def run_on_resized(self, image: np.ndarray, rid=None) -> Instances:
         """Raw (un-postprocessed) instances at the resized image's scale."""
         h, w = image.shape[:2]
-        out = self.run_model(image)
-        valid = out["valid"]
-        inst = Instances(
-            (h, w),
-            pred_boxes=out["boxes"][valid],
-            scores=out["scores"][valid],
-            pred_classes=out["classes"][valid],
-            orientations=out["orientations"][valid],
-        )
-        _set_text_fields(inst, out, valid)
-        if "mask_probs" in out:
-            inst.pred_masks = _unpack_masks(out["mask_probs"][valid])
-            inst.pred_rboxes = out["boxes"][valid]
+        with torch.inference_mode():
+            out = self._enqueue(image, rid)
+            with trace.span("glass.fetch", rid):
+                out = {k: v.cpu().numpy() for k, v in out.items()}
+                valid = out["valid"]
+                inst = Instances(
+                    (h, w),
+                    pred_boxes=out["boxes"][valid],
+                    scores=out["scores"][valid],
+                    pred_classes=out["classes"][valid],
+                    orientations=out["orientations"][valid],
+                )
+                _set_text_fields(inst, out, valid)
+                if "mask_probs" in out:
+                    inst.pred_masks = _unpack_masks(out["mask_probs"][valid])
+                    inst.pred_rboxes = out["boxes"][valid]
         return inst
 
     # -- batched serving --------------------------------------------------
-    def dispatch_batch(self, images: List[np.ndarray]):
+    def dispatch_batch(self, images: List[np.ndarray], rid=None):
         """Upload a batch of resized images (padded to the largest of their
         buckets) in one pinned copy, run the batched program and start the
         fetch of its outputs.  Returns (fetch, hws); ``collect_batch``
         finishes it."""
-        bh = max(self._pick_bucket(*im.shape[:2])[0] for im in images)
-        bw = max(self._pick_bucket(*im.shape[:2])[1] for im in images)
-        b = len(images)
-        u8 = all(im.dtype == np.uint8 for im in images)
-        host = torch.zeros((b, bh, bw, 3), dtype=torch.uint8 if u8 else torch.float32,
-                           pin_memory=self.device.type == "cuda")
-        padded = host.numpy()
-        hws = np.zeros((b, 2), np.int32)
-        for i, im in enumerate(images):
-            h, w = im.shape[:2]
-            padded[i, :h, :w] = im
-            hws[i] = (h, w)
         with torch.inference_mode():
-            out = self.batch_model_fn()(host.to(self.device, non_blocking=True), hws)
-            return start_fetch(out, self.device), hws
+            with trace.span("glass.upload", rid):
+                bh = max(self._pick_bucket(*im.shape[:2])[0] for im in images)
+                bw = max(self._pick_bucket(*im.shape[:2])[1] for im in images)
+                b = len(images)
+                u8 = all(im.dtype == np.uint8 for im in images)
+                host = torch.zeros((b, bh, bw, 3), dtype=torch.uint8 if u8 else torch.float32,
+                                   pin_memory=self.device.type == "cuda")
+                padded = host.numpy()
+                hws = np.zeros((b, 2), np.int32)
+                for i, im in enumerate(images):
+                    h, w = im.shape[:2]
+                    padded[i, :h, :w] = im
+                    hws[i] = (h, w)
+                staged = host.to(self.device, non_blocking=True)
+            with trace.span("glass.dispatch", rid):
+                out = self.batch_model_fn()(staged, hws)
+                return start_fetch(out, self.device), hws
 
     def batch_model_fn(self):
         """The batched model program, per TPU.SERVE_BATCH_MODE.  "map" runs
@@ -425,32 +452,33 @@ class GlassRunner:
             outs = list(pool.map(shard, range(n)))
         return {key: torch.cat([o[key] for o in outs])[:b] for key in outs[0]}
 
-    def run_batch_on_resized(self, images: List[np.ndarray]) -> List[Instances]:
+    def run_batch_on_resized(self, images: List[np.ndarray], rid=None) -> List[Instances]:
         """Batched inference over same-bucket resized images: raw instances
         at each resized image's scale."""
         if not images:
             return []
-        return self.collect_batch(self.dispatch_batch(images))
+        return self.collect_batch(self.dispatch_batch(images, rid), rid)
 
-    def collect_batch(self, dispatched) -> List[Instances]:
+    def collect_batch(self, dispatched, rid=None) -> List[Instances]:
         """Finish the fetch of a ``dispatch_batch`` result and unpack it."""
         fetch, hws = dispatched
-        out = finish_fetch(fetch)
-        results = []
-        for i in range(len(hws)):
-            valid = out["valid"][i]
-            inst = Instances(
-                tuple(hws[i]),
-                pred_boxes=out["boxes"][i][valid],
-                scores=out["scores"][i][valid],
-                pred_classes=out["classes"][i][valid],
-                orientations=out["orientations"][i][valid],
-            )
-            _set_text_fields(inst, {k: v[i] for k, v in out.items()}, valid)
-            if "mask_probs" in out:
-                inst.pred_masks = _unpack_masks(out["mask_probs"][i][valid])
-                inst.pred_rboxes = out["boxes"][i][valid]
-            results.append(inst)
+        with trace.span("glass.fetch", rid):
+            out = finish_fetch(fetch)
+            results = []
+            for i in range(len(hws)):
+                valid = out["valid"][i]
+                inst = Instances(
+                    tuple(hws[i]),
+                    pred_boxes=out["boxes"][i][valid],
+                    scores=out["scores"][i][valid],
+                    pred_classes=out["classes"][i][valid],
+                    orientations=out["orientations"][i][valid],
+                )
+                _set_text_fields(inst, {k: v[i] for k, v in out.items()}, valid)
+                if "mask_probs" in out:
+                    inst.pred_masks = _unpack_masks(out["mask_probs"][i][valid])
+                    inst.pred_rboxes = out["boxes"][i][valid]
+                results.append(inst)
         return results
 
     def _model_postprocess(self, preds: Instances, height: int, width: int) -> Instances:
@@ -473,42 +501,52 @@ class GlassRunner:
         return image
 
     def __call__(self, original_image: np.ndarray) -> Instances:
-        original_image = self._to_bgr(original_image)
-        image_height, image_width = original_image.shape[:2]
-        scale_ratio = self.get_inference_scale_ratio(original_image.shape)
-        if scale_ratio != 1:
-            new_h = int(np.round(scale_ratio * image_height))
-            new_w = int(np.round(scale_ratio * image_width))
-            image = cv2.resize(
-                original_image.astype(np.float32), (new_w, new_h), interpolation=cv2.INTER_LINEAR
-            )
-        else:
-            image = original_image.astype(np.float32)
+        rid = self.calls
+        self.calls += 1
+        with trace.span("glass.resize", rid):
+            original_image = self._to_bgr(original_image)
+            image_height, image_width = original_image.shape[:2]
+            scale_ratio = self.get_inference_scale_ratio(original_image.shape)
+            if scale_ratio != 1:
+                new_h = int(np.round(scale_ratio * image_height))
+                new_w = int(np.round(scale_ratio * image_width))
+                image = cv2.resize(
+                    original_image.astype(np.float32), (new_w, new_h), interpolation=cv2.INTER_LINEAR
+                )
+            else:
+                image = original_image.astype(np.float32)
 
-        preds = self.run_on_resized(image)
-        preds = self._model_postprocess(preds, image.shape[0], image.shape[1])
-        if scale_ratio != 1 and len(preds):
-            preds.pred_boxes = scale_rotated_np(
-                np.asarray(preds.pred_boxes), 1.0 / scale_ratio, 1.0 / scale_ratio
-            )
-        preds._image_size = (image_height, image_width)
-        logger.info("Detected %d raw word instances", len(preds))
-        if self.post_process_flag:
-            preds = self.post_processor(preds)
-            logger.info("Post-processing output is %d word instances", len(preds))
+        preds = self.run_on_resized(image, rid)
+        with trace.span("glass.post", rid):
+            trace.count("glass.post.words", len(preds))
+            preds = self._model_postprocess(preds, image.shape[0], image.shape[1])
+            if scale_ratio != 1 and len(preds):
+                preds.pred_boxes = scale_rotated_np(
+                    np.asarray(preds.pred_boxes), 1.0 / scale_ratio, 1.0 / scale_ratio
+                )
+            preds._image_size = (image_height, image_width)
+            logger.info("Detected %d raw word instances", len(preds))
+            if self.post_process_flag:
+                preds = self.post_processor(preds)
+                logger.info("Post-processing output is %d word instances", len(preds))
         return preds
 
     def eval_call(self, original_image: np.ndarray) -> Instances:
         """Dataset-evaluation path: d2 ``ResizeShortestEdge`` (MIN/MAX_SIZE_TEST)
         and ``detector_postprocess`` back to the original resolution."""
-        original_image = self._to_bgr(original_image)
-        oh, ow = original_image.shape[:2]
-        nh, nw = shortest_edge_size(oh, ow, self.min_target_size, self.max_target_size)
-        resized = cv2.resize(original_image.astype(np.float32), (nw, nh))
-        preds = self.run_on_resized(resized)
-        preds = self._model_postprocess(preds, oh, ow)
-        if self.post_process_flag:
-            preds = self.post_processor(preds)
+        rid = self.calls
+        self.calls += 1
+        with trace.span("glass.resize", rid):
+            original_image = self._to_bgr(original_image)
+            oh, ow = original_image.shape[:2]
+            nh, nw = shortest_edge_size(oh, ow, self.min_target_size, self.max_target_size)
+            resized = cv2.resize(original_image.astype(np.float32), (nw, nh))
+        preds = self.run_on_resized(resized, rid)
+        with trace.span("glass.post", rid):
+            trace.count("glass.post.words", len(preds))
+            preds = self._model_postprocess(preds, oh, ow)
+            if self.post_process_flag:
+                preds = self.post_processor(preds)
         return preds
 
     def eval_batch_call(self, original_images: List[np.ndarray], batch_size: int = 8) -> List[Instances]:
@@ -524,13 +562,14 @@ class GlassRunner:
         thread pool.  Every setting gives the same predictions."""
         u8 = bool(self.cfg.TPU.EVAL_UINT8_TRANSFER)
         prepped = []
-        for img in original_images:
-            img = self._to_bgr(img)
-            oh, ow = img.shape[:2]
-            nh, nw = shortest_edge_size(oh, ow, self.min_target_size, self.max_target_size)
-            if not u8 or img.dtype != np.uint8:
-                img = img.astype(np.float32)
-            prepped.append((cv2.resize(img, (nw, nh)), (oh, ow)))
+        for rid, img in enumerate(original_images):
+            with trace.span("glass.resize", rid):
+                img = self._to_bgr(img)
+                oh, ow = img.shape[:2]
+                nh, nw = shortest_edge_size(oh, ow, self.min_target_size, self.max_target_size)
+                if not u8 or img.dtype != np.uint8:
+                    img = img.astype(np.float32)
+                prepped.append((cv2.resize(img, (nw, nh)), (oh, ow)))
 
         results: List[Optional[Instances]] = [None] * len(prepped)
         order = sorted(
@@ -538,12 +577,13 @@ class GlassRunner:
         )
         chunks = [order[s : s + batch_size] for s in range(0, len(order), batch_size)]
         if bool(getattr(self.cfg.TPU, "ASYNC_FETCH", True)) and len(chunks) > 1:
-            pipelined(chunks, lambda idxs: self.run_batch_on_resized([prepped[i][0] for i in idxs]),
-                      lambda idxs, preds: self._postprocess_chunk(idxs, preds, prepped, results))
+            pipelined(chunks, lambda idxs: self.run_batch_on_resized([prepped[i][0] for i in idxs], idxs[0]),
+                      lambda idxs, preds: self._postprocess_chunk(idxs, preds, prepped, results),
+                      rid_of=lambda idxs: idxs[0])
             return results
         inflight = None
         for idxs in chunks:
-            dispatched = self.dispatch_batch([prepped[i][0] for i in idxs])
+            dispatched = self.dispatch_batch([prepped[i][0] for i in idxs], idxs[0])
             if inflight is not None:
                 self._finish_eval_chunk(inflight, prepped, results)
             inflight = (idxs, dispatched)
@@ -553,15 +593,17 @@ class GlassRunner:
 
     def _finish_eval_chunk(self, inflight, prepped, results) -> None:
         idxs, dispatched = inflight
-        self._postprocess_chunk(idxs, self.collect_batch(dispatched), prepped, results)
+        self._postprocess_chunk(idxs, self.collect_batch(dispatched, idxs[0]), prepped, results)
 
     def _postprocess_chunk(self, idxs, preds, prepped, results) -> None:
         def one(i, pr):
-            oh, ow = prepped[i][1]
-            pr = self._model_postprocess(pr, oh, ow)
-            if self.post_process_flag:
-                pr = self.post_processor(pr)
-            results[i] = pr
+            with trace.span("glass.post", i):
+                trace.count("glass.post.words", len(pr))
+                oh, ow = prepped[i][1]
+                pr = self._model_postprocess(pr, oh, ow)
+                if self.post_process_flag:
+                    pr = self.post_processor(pr)
+                results[i] = pr
 
         workers = int(getattr(self.cfg.TPU, "POSTPROCESS_WORKERS", 0) or 0)
         if workers > 1 and len(idxs) > 1:
@@ -575,16 +617,17 @@ class GlassRunner:
         """Full-pipeline batched inference: per-image resize rules, grouped
         batched model calls, per-image post-processing."""
         prepped = []
-        for img in original_images:
-            img = self._to_bgr(img)
-            scale = self.get_inference_scale_ratio(img.shape)
-            if scale != 1:
-                nh = int(np.round(scale * img.shape[0]))
-                nw = int(np.round(scale * img.shape[1]))
-                resized = cv2.resize(img.astype(np.float32), (nw, nh))
-            else:
-                resized = img.astype(np.float32)
-            prepped.append((resized, scale, img.shape[:2]))
+        for rid, img in enumerate(original_images):
+            with trace.span("glass.resize", rid):
+                img = self._to_bgr(img)
+                scale = self.get_inference_scale_ratio(img.shape)
+                if scale != 1:
+                    nh = int(np.round(scale * img.shape[0]))
+                    nw = int(np.round(scale * img.shape[1]))
+                    resized = cv2.resize(img.astype(np.float32), (nw, nh))
+                else:
+                    resized = img.astype(np.float32)
+                prepped.append((resized, scale, img.shape[:2]))
 
         results: List[Optional[Instances]] = [None] * len(prepped)
         # Group by bucket so each batch shares one padded shape.
@@ -593,18 +636,20 @@ class GlassRunner:
         )
         for start in range(0, len(order), batch_size):
             idxs = order[start : start + batch_size]
-            preds = self.run_batch_on_resized([prepped[i][0] for i in idxs])
+            preds = self.run_batch_on_resized([prepped[i][0] for i in idxs], idxs[0])
             for i, pr in zip(idxs, preds):
-                resized, scale, (oh, ow) = prepped[i]
-                pr = self._model_postprocess(pr, resized.shape[0], resized.shape[1])
-                if scale != 1 and len(pr):
-                    pr.pred_boxes = scale_rotated_np(
-                        np.asarray(pr.pred_boxes), 1.0 / scale, 1.0 / scale
-                    )
-                pr._image_size = (oh, ow)
-                if self.post_process_flag:
-                    pr = self.post_processor(pr)
-                results[i] = pr
+                with trace.span("glass.post", i):
+                    trace.count("glass.post.words", len(pr))
+                    resized, scale, (oh, ow) = prepped[i]
+                    pr = self._model_postprocess(pr, resized.shape[0], resized.shape[1])
+                    if scale != 1 and len(pr):
+                        pr.pred_boxes = scale_rotated_np(
+                            np.asarray(pr.pred_boxes), 1.0 / scale, 1.0 / scale
+                        )
+                    pr._image_size = (oh, ow)
+                    if self.post_process_flag:
+                        pr = self.post_processor(pr)
+                    results[i] = pr
         return results
 
     def forward_with_given_boxes(self, image: np.ndarray, instances: Instances) -> Instances:
@@ -636,7 +681,7 @@ class GlassRunner:
 
         model = self.model
         with torch.inference_mode():
-            with record_function("glass.backbone"):
+            with trace.span("glass.backbone"):
                 norm = preprocess(model, torch.from_numpy(padded).to(self.device))
                 feats = backbone_features(model, norm)
                 pyr = (pack_box_pyramid(model, feats)

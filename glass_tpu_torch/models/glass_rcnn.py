@@ -45,7 +45,6 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from .box_head import (
     Detections,
@@ -68,6 +67,7 @@ from ..ops.roi_align_rotated import (
     multilevel_pool,
     pack_batch_pyramid,
 )
+from ..utils import trace
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -371,10 +371,10 @@ def detect_batch(model: GlassRCNN, feats, pyr: PackedPyramid, image_sizes) -> De
     takes the B * P proposals in one launch, each image's with its own
     large-roi budget."""
     arch = model.arch
-    with record_function("glass.rpn"):
+    with trace.span("glass.rpn"):
         prop_boxes, _, prop_valid = rpn_proposals_batch(model, feats, image_sizes)
     b, p = prop_valid.shape
-    with record_function("glass.box_head"):
+    with trace.span("glass.box_head"):
         rois = prop_boxes.reshape(-1, 5)
         pooled = multilevel_pool(
             pyr, _min_level(model), rois,
@@ -522,7 +522,7 @@ def glass_detect_batch(model: GlassRCNN, images: torch.Tensor, image_sizes):
     the packed box pyramid; the features and the pyramid stay on the device
     for the heads, which pool the mask head from the pyramid as it is (no
     second packing)."""
-    with record_function("glass.backbone"):
+    with trace.span("glass.backbone"):
         norm = preprocess(model, images)
         feats = backbone_features(model, norm)
         pyr = pack_box_pyramid(model, feats)
@@ -548,11 +548,11 @@ def glass_heads_batch(model: GlassRCNN, feats, norm: torch.Tensor, pyr: PackedPy
     arch = model.arch
     out = {}
     if arch.recognizer_on:
-        with record_function("glass.recognizer"):
+        with trace.span("glass.recognizer"):
             probs = recognize_batch(model, feats, norm, boxes, raw_images=raw_images)
             out.update(emit_text(arch, probs))
     if arch.mask_on and arch.mask_inference:
-        with record_function("glass.mask_head"):
+        with trace.span("glass.mask_head"):
             out["mask_probs"] = emit_mask(arch, mask_batch(model, pyr, boxes, classes))
     return out
 
@@ -591,7 +591,7 @@ def glass_inference_single(model: GlassRCNN, image: torch.Tensor, content_hw) ->
     orientations (D, 2), valid (D,), text fields (``emit_text``) and
     mask_probs (D, 28, 28) when MASK_INFERENCE is on.
 
-    Each stage runs under a ``record_function`` span (``glass.backbone``,
+    Each stage runs under a ``utils.trace`` span (``glass.backbone``,
     ``glass.rpn``, ``glass.box_head``, ``glass.recognizer``,
     ``glass.mask_head``), so a ``torch.profiler`` trace attributes device
     kernels to stages.

@@ -282,19 +282,18 @@ def make_parallel_train_step(group=None) -> Callable:
     glass_tpu's ``pmean(bn_updates)``), ``total`` and every loss and
     metric; then the SGD step on the averaged gradients.  A parameter the
     loss does not reach takes a zero gradient, as in the optimizer."""
-    from torch.profiler import record_function
-
     from ..models.context import BatchNorm2d
     from ..train.train_step import glass_train_forward
+    from ..utils import trace
 
     def step(model, optimizer, tcfg, batch, priorities, iteration) -> Dict[str, torch.Tensor]:
         model.train()
         optimizer.zero_grad()
         with sync_batch_norm(model, group):
             total, losses = glass_train_forward(model, tcfg, batch, priorities)
-            with record_function("glass.backward"):
+            with trace.span("glass.backward"):
                 total.backward()
-        with record_function("glass.all_reduce"), torch.no_grad():
+        with trace.span("glass.all_reduce"), torch.no_grad():
             params = list(model.parameters())
             for p in params:
                 if p.grad is None:
@@ -305,7 +304,7 @@ def make_parallel_train_step(group=None) -> Callable:
             scalars = torch.stack([total.detach().to(torch.float32)]
                                   + [losses[k].detach().to(torch.float32) for k in names])
             _flat_all_reduce_mean([p.grad for p in params] + stats + [scalars], group)
-        with record_function("glass.optimizer"):
+        with trace.span("glass.optimizer"):
             optimizer.step(iteration)
         metrics = dict(zip(names, scalars[1:]))
         metrics["total_loss"] = scalars[0]

@@ -26,6 +26,7 @@ import torch
 from ..device import resolve_device
 from ..structures import Instances
 from ..text import TextCodec, decode_instance_texts
+from ..utils import trace
 from .np_geometry import (
     boxes_to_polygons_np,
     nms_rotated_np,
@@ -78,50 +79,51 @@ class PostProcessorRotatedBoxes:
     ) -> Instances:
         if len(preds) == 0:
             return preds
-        if self.on_device:
-            return self._merge_on_device(
-                preds, ioa_threshold, pairs_height_ratio_thresh
-            )
-        while True:
-            boxes = np.asarray(preds.pred_boxes, np.float32).copy()
-            scores = np.asarray(preds.scores, np.float32)
-            ioa = pairwise_ioa_rotated_np(boxes, boxes)
-            np.fill_diagonal(ioa, 0.0)
-            pairs = np.argwhere(np.triu(ioa) >= self.minimal_ioa_thresh)
-            if len(pairs) == 0:
-                break
+        with trace.span("glass.post.merge"):
+            if self.on_device:
+                return self._merge_on_device(
+                    preds, ioa_threshold, pairs_height_ratio_thresh
+                )
+            while True:
+                boxes = np.asarray(preds.pred_boxes, np.float32).copy()
+                scores = np.asarray(preds.scores, np.float32)
+                ioa = pairwise_ioa_rotated_np(boxes, boxes)
+                np.fill_diagonal(ioa, 0.0)
+                pairs = np.argwhere(np.triu(ioa) >= self.minimal_ioa_thresh)
+                if len(pairs) == 0:
+                    break
 
-            heights = boxes[:, 3]
-            angles = boxes[:, 4]
-            angle_diff = angles[pairs[:, 1]] - angles[pairs[:, 0]]
-            angle_diff = np.abs((angle_diff + 180) % 360 - 180)
-            similar_angle = (angle_diff < self.max_angle_diff) | (
-                angle_diff > (180 - self.max_angle_diff)
-            )
-            height_ratio = heights[pairs[:, 1]] / heights[pairs[:, 0]]
-            similar_height = (pairs_height_ratio_thresh < height_ratio) & (
-                height_ratio < 1.0 / (pairs_height_ratio_thresh + 1e-6)
-            )
-            min_pair_score = np.minimum(scores[pairs[:, 0]], scores[pairs[:, 1]])
-            valid_score = min_pair_score >= self.valid_score
-            ioa_ok = ioa[pairs[:, 0], pairs[:, 1]] >= ioa_threshold
+                heights = boxes[:, 3]
+                angles = boxes[:, 4]
+                angle_diff = angles[pairs[:, 1]] - angles[pairs[:, 0]]
+                angle_diff = np.abs((angle_diff + 180) % 360 - 180)
+                similar_angle = (angle_diff < self.max_angle_diff) | (
+                    angle_diff > (180 - self.max_angle_diff)
+                )
+                height_ratio = heights[pairs[:, 1]] / heights[pairs[:, 0]]
+                similar_height = (pairs_height_ratio_thresh < height_ratio) & (
+                    height_ratio < 1.0 / (pairs_height_ratio_thresh + 1e-6)
+                )
+                min_pair_score = np.minimum(scores[pairs[:, 0]], scores[pairs[:, 1]])
+                valid_score = min_pair_score >= self.valid_score
+                ioa_ok = ioa[pairs[:, 0], pairs[:, 1]] >= ioa_threshold
 
-            mask = valid_score & similar_height & ioa_ok & similar_angle
-            if not mask.any():
-                break
+                mask = valid_score & similar_height & ioa_ok & similar_angle
+                if not mask.any():
+                    break
 
-            vp = pairs[mask]
-            merged = self._merge_rotated_boxes(
-                boxes[vp[:, 0]], boxes[vp[:, 1]], scores[vp[:, 0]], scores[vp[:, 1]]
-            )
-            boxes[vp[:, 0]] = merged
-            boxes[vp[:, 1]] = merged
-            preds.pred_boxes = boxes
-            # d2's nms_rotated returns kept indices in descending-score
-            # order, reordering the predictions — preserved here.
-            keep = nms_rotated_np(boxes, scores, 0.99)
-            preds = preds[keep]
-        return preds
+                vp = pairs[mask]
+                merged = self._merge_rotated_boxes(
+                    boxes[vp[:, 0]], boxes[vp[:, 1]], scores[vp[:, 0]], scores[vp[:, 1]]
+                )
+                boxes[vp[:, 0]] = merged
+                boxes[vp[:, 1]] = merged
+                preds.pred_boxes = boxes
+                # d2's nms_rotated returns kept indices in descending-score
+                # order, reordering the predictions — preserved here.
+                keep = nms_rotated_np(boxes, scores, 0.99)
+                preds = preds[keep]
+            return preds
 
     def _merge_on_device(
         self, preds: Instances, ioa_threshold: float, pairs_height_ratio_thresh: float
@@ -306,27 +308,28 @@ def detector_postprocess(
     out = out[nonempty]
 
     if out.has("pred_masks") and len(out):
-        mask_boxes = np.asarray(
-            out.pred_rboxes if out.has("pred_rboxes") else out.pred_boxes
-        )
-        if full_masks:
-            from .paste import paste_masks_rotated
-
-            out.pred_masks = paste_masks_rotated(
-                np.asarray(out.pred_masks), mask_boxes,
-                (output_height, output_width), threshold=mask_threshold,
+        with trace.span("glass.post.polygons"):
+            mask_boxes = np.asarray(
+                out.pred_rboxes if out.has("pred_rboxes") else out.pred_boxes
             )
-        else:
-            # Polygon extraction without the full-resolution paste (the only
-            # downstream consumer of pasted masks) — identical contours,
-            # computed inside each box's AABB window (paste.py).
-            from .paste import rotated_masks_to_polygons
+            if full_masks:
+                from .paste import paste_masks_rotated
 
-            out.pred_mask_polygons = rotated_masks_to_polygons(
-                np.asarray(out.pred_masks), mask_boxes,
-                (output_height, output_width), threshold=mask_threshold,
-            )
-            out.remove("pred_masks")
+                out.pred_masks = paste_masks_rotated(
+                    np.asarray(out.pred_masks), mask_boxes,
+                    (output_height, output_width), threshold=mask_threshold,
+                )
+            else:
+                # Polygon extraction without the full-resolution paste (the only
+                # downstream consumer of pasted masks) — identical contours,
+                # computed inside each box's AABB window (paste.py).
+                from .paste import rotated_masks_to_polygons
+
+                out.pred_mask_polygons = rotated_masks_to_polygons(
+                    np.asarray(out.pred_masks), mask_boxes,
+                    (output_height, output_width), threshold=mask_threshold,
+                )
+                out.remove("pred_masks")
     return out
 
 

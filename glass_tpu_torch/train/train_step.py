@@ -32,7 +32,6 @@ from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import torch
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..models.fpn import FPN_LEVEL_STRIDES
@@ -52,6 +51,7 @@ from ..ops.boxes import get_deltas, overwrite_orientations_on_boxes
 from ..ops.crop import crop_rois
 from ..ops.iou_rotated import pairwise_iou_rotated
 from ..ops.roi_align_rotated import multilevel_pool, pack_batch_pyramid
+from ..utils import trace
 from . import losses as LS
 from .matcher import (
     matcher_assign,
@@ -220,7 +220,7 @@ def glass_train_forward(model: GlassRCNN, tcfg: TrainConfig, batch: dict,
     b = images.shape[0]
     gt_boxes, gt_valid = batch["gt_boxes"], batch["gt_valid"]
     content_hw = [(int(h), int(w)) for h, w in batch["content_hw"]]
-    with record_function("glass.backbone"):
+    with trace.span("glass.backbone"):
         norm = preprocess(model, images)
         if arch.remat_backbone:
             feats = remat_backbone_features(model, norm)
@@ -228,7 +228,7 @@ def glass_train_forward(model: GlassRCNN, tcfg: TrainConfig, batch: dict,
             feats = backbone_features(model, norm)
 
     # ---- RPN ------------------------------------------------------------
-    with record_function("glass.rpn_loss"):
+    with trace.span("glass.rpn_loss"):
         rpn_features = [feats[f] for f in arch.rpn_in_features]
         logits_l, deltas_l = model.proposal_generator.rpn_head(rpn_features)
         anchors_l = _anchors(model, rpn_features)
@@ -238,7 +238,7 @@ def glass_train_forward(model: GlassRCNN, tcfg: TrainConfig, batch: dict,
         losses = rpn_losses(model, tcfg, logits, deltas, anchors, gt_boxes, gt_valid, priorities)
 
     # ---- proposals (no gradient, no content mask, as glass_tpu) ----------
-    with record_function("glass.rpn"), torch.no_grad():
+    with trace.span("glass.rpn"), torch.no_grad():
         props = [
             select_proposals_single_image(
                 [lg[i].to(torch.float32) for lg in logits_l], [d[i] for d in deltas_l],
@@ -263,7 +263,7 @@ def glass_train_forward(model: GlassRCNN, tcfg: TrainConfig, batch: dict,
 
     # ---- box head -------------------------------------------------------
     r = tcfg.roi_batch_per_image
-    with record_function("glass.box_head"):
+    with trace.span("glass.box_head"):
         pyr = pack_batch_pyramid(
             [feats[f].permute(0, 2, 3, 1) for f in arch.box_in_features],
             [1.0 / FPN_LEVEL_STRIDES[f] for f in arch.box_in_features],
@@ -288,7 +288,7 @@ def glass_train_forward(model: GlassRCNN, tcfg: TrainConfig, batch: dict,
 
     # ---- recognizer branch ------------------------------------------------
     if arch.recognizer_on:
-        with record_function("glass.recognizer"):
+        with trace.span("glass.recognizer"):
             losses["loss_decoder"] = _recognizer_loss(
                 model, tcfg, feats, norm, ds_boxes, fg_mask, sel_gt_idx, batch["gt_text"],
                 priorities,
@@ -296,7 +296,7 @@ def glass_train_forward(model: GlassRCNN, tcfg: TrainConfig, batch: dict,
 
     # ---- mask branch --------------------------------------------------------
     if arch.mask_on and "gt_polygons" in batch:
-        with record_function("glass.mask_head"):
+        with trace.span("glass.mask_head"):
             _mask_losses(model, tcfg, losses, pyr, ds_boxes, fg_mask, sel_gt_idx,
                          batch["gt_polygons"], batch["gt_poly_nv"], priorities)
 
@@ -479,9 +479,9 @@ def train_step(model: GlassRCNN, optimizer, tcfg: TrainConfig, batch: dict,
     model.train()
     optimizer.zero_grad()
     total, losses = glass_train_forward(model, tcfg, batch, priorities)
-    with record_function("glass.backward"):
+    with trace.span("glass.backward"):
         total.backward()
-    with record_function("glass.optimizer"):
+    with trace.span("glass.optimizer"):
         optimizer.step(iteration)
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["total_loss"] = total.detach()
