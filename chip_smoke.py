@@ -209,8 +209,21 @@ Phases:
      zip with ``--expected-hmean 1.0 --tolerance 0.01`` exits 0 with pass
      true (the model scores itself); (c) the same at 0.5 exits 1 with pass
      false.  Prints each run's img/s (the CLI's bench log), the tensor count
-     and the K1/K2 launches (exactly 2 and 1 per image).  Every phase prints
-     its seconds.
+     and the K1/K2 launches (exactly 2 and 1 per image).
+ 16. K3 (the binary rotated mask windows, csrc/paste_masks_rotated.cu):
+     ``GlassRunner.__call__`` at bfloat16 with the serving cell's loosened
+     thresholds on phase 4's images records what ``detector_postprocess``
+     hands the runner's ``RotatedMaskPaster``; the paster's polygons must
+     equal the host loop's (``rotated_masks_to_polygons``) on every image,
+     at one K3 launch an image.  On the first image: K3's output in both
+     forms against its plain version byte for byte (flags and foreground
+     boxes included), its
+     device time from a CUDA graph of 50 launches beside its byte bound
+     (masks and table read, the windows, flags and boxes written, at 3.35
+     TB/s),
+     and the polygon step's time through the paster and through the host
+     loop; the knife-edge fallback share over every image.  Every phase
+     prints its seconds.
 
 Prints, on the last two lines, a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``, and copies everything it prints into
@@ -4389,6 +4402,105 @@ def finish_fetch_dispatch(runner, images) -> dict:
     return finish_fetch(fetch)
 
 
+def phase_k3(images, state_dict, n_images=4, device="cuda", opts=()):
+    """Phase 16: K3 on the word sets of serving images (see the module's
+    docstring).  On the CPU (a rehearsal) the paster runs K3's plain
+    version and the card's launches and times are skipped."""
+    from glass_tpu_torch.inference import GlassRunner
+    from glass_tpu_torch.ops import _cuda
+    from glass_tpu_torch.ops import paste_masks_rotated as k3
+    from glass_tpu_torch.postprocess import paste
+    from glass_tpu_torch.utils import trace
+
+    cuda = torch.device(device).type == "cuda"
+    runner = GlassRunner(cfg=eval_cfg("bfloat16", opts=[*LOOSE_OPTS, *opts]), state_dict=state_dict,
+                         device=device)
+    paster, seen = runner.mask_paster or paste.RotatedMaskPaster("cpu"), []
+
+    def recording(masks, boxes, shape, threshold=0.5):
+        seen.append((np.array(masks), np.array(boxes), tuple(shape), threshold))
+        return paster(masks, boxes, shape, threshold)
+
+    runner.mask_paster = recording
+    runner(images[0])  # warm-up: the kernel's build, the paster's buffers and host form
+    seen.clear()
+    _cuda.LAUNCHES.clear()
+    trace.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for img in images[:n_images]:
+            runner(img)
+    counts = trace.totals()
+    launches = _cuda.LAUNCHES[k3.KERNEL]
+    form = paste.host_form()
+    log(f"K3: host cv2 form {form} ({'float' if form == k3.FORM_FLOAT else 'fixed'}); "
+        f"{launches} launches over {n_images} images; words on the card "
+        f"{counts.get('glass.post.polygons.device_words', 0)}, re-warped on the host "
+        f"{counts.get('glass.post.polygons.fallback_words', 0)}")
+    if cuda and launches != n_images:
+        raise AssertionError(f"K3: {launches} launches over {n_images} images, expected one an image")
+    step_ms, loop_ms = [], []
+    for masks, boxes, shape, thr in seen:
+        t0 = time.perf_counter()
+        got = paster(masks, boxes, shape, thr)
+        t1 = time.perf_counter()
+        want = paste.rotated_masks_to_polygons(masks, boxes, shape, thr)
+        t2 = time.perf_counter()
+        step_ms.append((t1 - t0) * 1e3)
+        loop_ms.append((t2 - t1) * 1e3)
+        for i, (a, b) in enumerate(zip(got, want)):
+            if (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)):
+                raise AssertionError(f"K3: word {i}'s polygon differs from the host loop's")
+    log(f"K3: polygons equal the host loop's on {len(seen)} images ({sum(len(s[0]) for s in seen)} words); "
+        f"polygon step through the paster {', '.join(f'{v:.1f}' for v in step_ms)} ms, host loop "
+        f"{', '.join(f'{v:.1f}' for v in loop_ms)} ms")
+    words = counts.get("glass.post.polygons.device_words", 0)
+    fallback = counts.get("glass.post.polygons.fallback_words", 0)
+    log(f"K3: knife-edge fallback {fallback} of {words} words on the card "
+        f"({100 * fallback / max(words, 1):.1f} %)")
+    if not cuda:
+        return None
+
+    masks, boxes, shape, thr = seen[0]
+    win, fwd, inv = paste.word_windows(boxes, shape, masks.shape[1:])
+    keep = (win[:, 2] > win[:, 0]) & (win[:, 3] > win[:, 1])
+    w, h = win[keep, 2] - win[keep, 0], win[keep, 3] - win[keep, 1]
+    sizes = (w * h + 15) // 16 * 16
+    geo = np.stack([np.cumsum(sizes) - sizes, w, h], 1)
+    n = int(keep.sum())
+    m_t = torch.from_numpy(masks[keep].astype(np.float32))
+    dev = [m_t.cuda(), torch.from_numpy(inv[keep]).cuda(), torch.from_numpy(geo).cuda(),
+           torch.from_numpy(k3.tile_table(geo)).cuda()]
+    out = torch.zeros(int(sizes.sum()), dtype=torch.uint8, pin_memory=True)
+    flags = torch.zeros(n, dtype=torch.int32, pin_memory=True)
+    no_fg = torch.tensor([[k3.NO_FG, k3.NO_FG, -1, -1]] * n, dtype=torch.int32, device="cuda")
+    fg = no_fg.clone()
+    rows, err = [], 0
+    for f in (k3.FORM_FLOAT, k3.FORM_FIXED):
+        out.zero_()
+        flags.zero_()
+        fg.copy_(no_fg)
+        k3.paste_binarize(*dev, fg, f, thr, paste.KNIFE_EDGE, out, flags, torch.cuda.current_stream())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, want_flags, want_fg = k3.paste_binarize_plain(m_t, torch.from_numpy(inv[keep]),
+                                                            torch.from_numpy(geo), f, thr, paste.KNIFE_EDGE)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bad = int((out != want).sum()) + int((flags != want_flags).sum()) + int((fg.cpu() != want_fg).sum())
+        err = max(err, bad)
+        ms = kernel_ms(lambda: k3.paste_binarize(*dev, fg, f, thr, paste.KNIFE_EDGE, out, flags,
+                                                 torch.cuda.current_stream()))
+        nbytes = n * masks.shape[1] * masks.shape[2] * 4 + n * (48 + 24 + 4 + 32) + len(dev[3]) * 8 + int(sizes.sum())
+        b_ms, b_by = bound(nbytes, 0.0)
+        rows.append(dict(form=f, err=bad, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"K3 form {f}: {n} words, {int((w * h).sum())} window pixels, {len(dev[3])} tiles; "
+            f"bytes, flags and boxes off the plain version {bad}; kernel {ms:.4f} ms, plain {plain_ms:.0f} ms, "
+            f"byte bound {b_ms:.4f} ms ({nbytes} B at 3.35 TB/s), {100 * b_ms / ms:.1f}% of it")
+    if err:
+        raise AssertionError(f"K3: {err} bytes, flags or box numbers differ from the plain version")
+    return dict(rows=[r for r in rows if r["form"] == form], launches=launches, n_images=n_images,
+                step_ms=step_ms, loop_ms=loop_ms)
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     return {
         "name": name,
@@ -4407,7 +4519,7 @@ def kernel_entry(name, source, replaces, launches, rows):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16")
     ap.add_argument("--out", default="chip_smoke_out", help="directory for the build log and the profile table")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -4429,7 +4541,7 @@ def main():
     rng = np.random.RandomState(0)
     rois_np = word_rois(rng, N_ROIS, *BUCKET_HW)
     k1_rows = k2_rows = k1b_rows = None
-    main = train = variants = distributed = fp16 = vmap = tools = verified = None
+    main = train = variants = distributed = fp16 = vmap = tools = verified = k3 = None
     seconds, lap = {}, [time.perf_counter()]
 
     def mark(n):  # the seconds of phase n, from the end of the one before
@@ -4446,7 +4558,7 @@ def main():
     if 3 in phases:
         k2_rows, k2_edge, k2_lib_ms = phase_k2(rng, rois_np)
         mark(3)
-    if phases & {4, 5, 6, 9, 10, 11, 12, 13, 15}:
+    if phases & {4, 5, 6, 9, 10, 11, 12, 13, 15, 16}:
         images = [synthetic_image(np.random.RandomState(100 + i), 720, 1280) for i in range(N_IMAGES)]
         state_dict = seeded_weights(images[0])
         mark("weights")
@@ -4491,6 +4603,9 @@ def main():
     if 15 in phases:
         verified = phase_verify(state_dict, args.out)
         mark(15)
+    if 16 in phases:
+        k3 = phase_k3(images, state_dict)
+        mark(16)
     log(f"seconds by phase (in the order run; 'weights' is the seeded model of phases 4-6 and 9-15): {seconds}, "
         f"{sum(seconds.values()):.1f} in all")
 
@@ -4531,11 +4646,18 @@ def main():
                              launches.get("roi_align_rotated_backward", 0), rows)
         entry["max_abs_err"] = max(r["err"] for r in k1b_rows + k1b_edge + fp16_rows.get("k1b", []))
         kernels.append(entry)
+    if k3:
+        entry = kernel_entry("paste_masks_rotated", "glass_tpu_torch/csrc/paste_masks_rotated.cu",
+                             "none (the host's cv2.warpAffine and threshold a word)", k3["launches"],
+                             k3["rows"])
+        entry["bound_by"] = "bytes"
+        kernels.append(entry)
     log(f"kernel times are per image at the main-path shapes (bfloat16; K1 summed over its "
         f"three poolers); launches over phase 4's {per_image} main-path images, phase 8's training "
         f"steps, phase 10's serving and training, phase 11's distributed training and serving, "
         f"phase 12's fp16 serving and training, remat and chunked training, phase 13's vmap and "
-        f"map serving, phase 14's measurement tools and phase 15's three verification runs; max_abs_err over every dtype's case (phase 12's fp16 ones and phase 13's "
+        f"map serving, phase 14's measurement tools and phase 15's three verification runs (K3: "
+        f"its launches over phase 16's images, its time on phase 16's first image); max_abs_err over every dtype's case (phase 12's fp16 ones and phase 13's "
         f"batched K2 included), on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -73,6 +73,7 @@ from ..models.context import BatchNorm2d
 from ..models.local_extractor import BasicBlock
 from ..models.resnet import BottleneckBlock
 from ..postprocess import build_post_processor, detector_postprocess
+from ..postprocess.paste import RotatedMaskPaster
 from ..postprocess.post_processor import scale_rotated_np
 from ..structures import Instances
 from ..text import TextCodec, decode_instance_texts
@@ -282,6 +283,9 @@ class GlassRunner:
         assert self.input_format in ("RGB", "BGR", "GREY")
         self.codec = TextCodec.from_config(self.cfg)
         self.post_processor = build_post_processor(self.cfg, self.device)
+        # the mask polygons of every path through detector_postprocess: K3
+        # on a CUDA device, the host loop on the CPU
+        self.mask_paster = RotatedMaskPaster(self.device) if self.device.type == "cuda" else None
         self.pad_multiple = self.cfg.TPU.PAD_IMAGE_TO_MULTIPLE
         self.buckets = [tuple(b) for b in self.cfg.TPU.IMAGE_BUCKETS]
         pp = self.cfg.POST_PROCESSING
@@ -491,7 +495,7 @@ class GlassRunner:
             preds = self.post_processor.drop_overlapping_boxes(
                 preds, self.ioa_threshold, self.valid_score
             )
-        return detector_postprocess(preds, height, width)
+        return detector_postprocess(preds, height, width, paster=self.mask_paster)
 
     def _to_bgr(self, image: np.ndarray) -> np.ndarray:
         if self.input_format == "RGB":

@@ -32,7 +32,7 @@ import time
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-KERNEL_SOURCES = ("roi_align_rotated", "roi_align_rotated_backward", "crop_rois")
+KERNEL_SOURCES = ("roi_align_rotated", "roi_align_rotated_backward", "crop_rois", "paste_masks_rotated")
 HEADERS = ("bilinear.cuh",)
 # No --use_fast_math, and no FMA contraction: the sample coordinates feed
 # floor(), and contracted FMAs move knife-edge samples to the neighbouring

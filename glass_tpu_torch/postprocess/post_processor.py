@@ -277,13 +277,15 @@ def scale_rotated_np(boxes: np.ndarray, sx: float, sy: float) -> np.ndarray:
 
 def detector_postprocess(
     results: Instances, output_height: int, output_width: int,
-    mask_threshold: float = 0.5, full_masks: bool = False,
+    mask_threshold: float = 0.5, full_masks: bool = False, paster=None,
 ) -> Instances:
     """Rescale predictions to the original image resolution.
 
     Rotated-aware port of reference ``post_processor_academic.py:118-178``
     (scales ``pred_boxes``/``pred_rboxes``, pastes masks via the rotated
-    grid, drops empty boxes).
+    grid, drops empty boxes).  ``paster`` (a ``paste.RotatedMaskPaster``,
+    which a runner on a CUDA device holds) computes the mask polygons with
+    kernel K3; without one the host loop does, with the same result.
     """
     scale_x = output_width / results.image_size[1]
     scale_y = output_height / results.image_size[0]
@@ -325,7 +327,8 @@ def detector_postprocess(
                 # computed inside each box's AABB window (paste.py).
                 from .paste import rotated_masks_to_polygons
 
-                out.pred_mask_polygons = rotated_masks_to_polygons(
+                polygons = paster if paster is not None else rotated_masks_to_polygons
+                out.pred_mask_polygons = polygons(
                     np.asarray(out.pred_masks), mask_boxes,
                     (output_height, output_width), threshold=mask_threshold,
                 )
