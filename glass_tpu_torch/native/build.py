@@ -3,9 +3,14 @@
 ``polyclip.cpp`` is compiled with ``g++`` at first use into
 ``glass_tpu_torch/_build/`` (or ``$GLASS_TPU_TORCH_BUILD_DIR``), never beside
 the source, under a name keyed by a hash of the source and the flags, and
-loaded with ``ctypes``.  When the build or the load fails, the evaluator
-takes its pure-Python polygon path and a warning says so;
-``polyclip_path()`` names the path that ran.
+loaded with ``ctypes`` (whose calls release the interpreter lock).  It
+serves the evaluator's polygon IoUs and the post-processor's rotated-box
+IoU (``postprocess/np_geometry.py``), which the post-processor loads when
+it is built.  ``-ffp-contract=off`` keeps the compiler from fusing a
+multiply and an add that numpy rounds apart, so the rotated IoU equals the
+numpy clip bit for bit on any host.  When the build or the load fails, both
+take their numpy or Python path and a warning says so; ``polyclip_path()``
+names the path that ran.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ logger = logging.getLogger(__name__)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "polyclip.cpp")
-GXX_FLAGS = ("-O3", "-shared", "-fPIC")
+GXX_FLAGS = ("-O3", "-ffp-contract=off", "-shared", "-fPIC")
 _lock = threading.Lock()
 _lib = None
 _path = None  # "native" or "python" once load_polyclip has run
@@ -55,6 +60,11 @@ class PolyClip:
         lib.polyclip_pairwise_iou.argtypes = [d, i, ctypes.c_int32, d, i, ctypes.c_int32, d]
         lib.polyclip_pairwise_ioa_first.restype = None
         lib.polyclip_pairwise_ioa_first.argtypes = [d, i, ctypes.c_int32, d, i, ctypes.c_int32, d]
+        lib.polyclip_pairwise_iou_quads.restype = ctypes.c_int64
+        lib.polyclip_pairwise_iou_quads.argtypes = [
+            d, d, ctypes.c_int32, d, d, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64),
+        ]
 
     @staticmethod
     def _flatten(polys):
@@ -104,6 +114,30 @@ class PolyClip:
         return self._pairwise(self._lib.polyclip_pairwise_ioa_first, polys_p, polys_q)
 
 
+    def pairwise_iou_quads(self, polys_p, areas_p, polys_q, areas_q):
+        """Rotated IoU of quads (n, 4, 2) and (m, 4, 2), float64 polygons
+        and areas, as ``np_geometry``'s numpy clip computes it -> the (n, m)
+        float32 matrix and the flat indices of pairs whose clip overflowed,
+        left 0 there for the scalar clip."""
+        d = ctypes.POINTER(ctypes.c_double)
+        pp = np.ascontiguousarray(polys_p, np.float64)
+        qq = np.ascontiguousarray(polys_q, np.float64)
+        ap = np.ascontiguousarray(areas_p, np.float64)
+        aq = np.ascontiguousarray(areas_q, np.float64)
+        n, m = len(pp), len(qq)
+        if pp.shape != (n, 4, 2) or qq.shape != (m, 4, 2) or ap.shape != (n,) or aq.shape != (m,):
+            raise ValueError(f"quads {pp.shape}, {qq.shape} and areas {ap.shape}, {aq.shape} do not match")
+        out = np.empty((n, m), np.float32)
+        overflow = np.empty(n * m, np.int64)
+        k = self._lib.polyclip_pairwise_iou_quads(
+            pp.ctypes.data_as(d), ap.ctypes.data_as(d), n,
+            qq.ctypes.data_as(d), aq.ctypes.data_as(d), m,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            overflow.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        )
+        return out, overflow[:k]
+
+
 def _build(out: str) -> None:
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
@@ -131,6 +165,7 @@ def load_polyclip():
 
 
 def polyclip_path() -> str:
-    """Which polygon path the evaluator takes: "native" or "python"."""
+    """Which polygon path the evaluator and the rotated IoU take: "native"
+    or "python"."""
     load_polyclip()
     return _path

@@ -10,6 +10,10 @@
 //
 // Exposed via a C ABI for ctypes (no PyTorch or pybind11 headers).  A copy
 // of glass_tpu/native/polyclip.cpp: the port keeps its own sources.
+//
+// polyclip_pairwise_iou_quads, at the end, serves the post-processor's
+// rotated IoU instead: the convex-quad clip of postprocess/np_geometry.py,
+// pass for pass and bit for bit (built without FMA contraction).
 
 #include <cmath>
 #include <cstdint>
@@ -100,6 +104,72 @@ double polygon_area_abs(const Pt* p, int n) {
   return std::fabs(signed_area(p, n));
 }
 
+// Intersection area of convex quads p and q, as np_geometry.py's
+// _quad_intersection_areas_batch computes one pair: q's 4 half-planes clip
+// p in turn, each pass keeping [intersection, current] for every vertex in
+// order, |denom| > 1e-12, at most 8 vertices; the area's 8 shoelace terms
+// (zeros past the last vertex) summed in numpy's pairwise order.  False
+// when a pass keeps more than 8 vertices (quads that share an edge): numpy
+// takes its scalar clip for such a pair, and so does the caller.
+bool quad_intersection_area(const Pt* p, const Pt* q, double* area) {
+  Pt v[8], out[16];
+  double s[8];
+  std::memcpy(v, p, 4 * sizeof(Pt));
+  int nv = 4;
+  for (int e = 0; e < 4; ++e) {
+    const Pt a = q[e];
+    const double bax = q[(e + 1) % 4].x - a.x;
+    const double bay = q[(e + 1) % 4].y - a.y;
+    for (int k = 0; k < nv; ++k)
+      s[k] = bax * (v[k].y - a.y) - bay * (v[k].x - a.x);
+    int m = 0;
+    for (int k = 0; k < nv; ++k) {
+      const int pk = (k + nv - 1) % nv;
+      const bool in = s[k] >= 0.0;
+      if (in != (s[pk] >= 0.0)) {
+        const double denom = s[pk] - s[k];
+        const double t = std::fabs(denom) > 1e-12 ? s[pk] / denom : 0.0;
+        out[m++] = {v[pk].x + t * (v[k].x - v[pk].x),
+                    v[pk].y + t * (v[k].y - v[pk].y)};
+      }
+      if (in) out[m++] = v[k];
+    }
+    if (m > 8) return false;
+    std::memcpy(v, out, m * sizeof(Pt));
+    nv = m;
+  }
+  double c[8];
+  for (int k = 0; k < 8; ++k) {
+    if (k < nv) {
+      const Pt& nx = v[(k + 1) % nv];
+      c[k] = v[k].x * nx.y - nx.x * v[k].y;
+    } else {
+      c[k] = 0.0;
+    }
+  }
+  const double sum =
+      ((c[0] + c[1]) + (c[2] + c[3])) + ((c[4] + c[5]) + (c[6] + c[7]));
+  *area = nv >= 3 ? 0.5 * std::fabs(sum) : 0.0;
+  return true;
+}
+
+struct Aabb {
+  double lo_x, lo_y, hi_x, hi_y;
+  bool nan;  // numpy's min and max spread a NaN, which fails every test
+};
+
+Aabb quad_aabb(const Pt* p) {
+  Aabb b{p[0].x, p[0].y, p[0].x, p[0].y, false};
+  for (int k = 0; k < 4; ++k) {
+    b.nan |= std::isnan(p[k].x) || std::isnan(p[k].y);
+    b.lo_x = std::fmin(b.lo_x, p[k].x);
+    b.lo_y = std::fmin(b.lo_y, p[k].y);
+    b.hi_x = std::fmax(b.hi_x, p[k].x);
+    b.hi_y = std::fmax(b.hi_y, p[k].y);
+  }
+  return b;
+}
+
 }  // namespace
 
 extern "C" {
@@ -161,5 +231,44 @@ void polyclip_pairwise_ioa_first(const double* p_coords,
       out[i * n_q + j] = ap > 1e-12 ? inter / ap : 0.0;
     }
   }
+}
+
+// Pairwise rotated IoU of quads, bit for bit np_geometry.py's numpy body of
+// pairwise_iou_rotated_np: p (n, 4, 2) and q (m, 4, 2) the float64
+// polygons, area_p and area_q the float64 box areas, out (n, m) float32.
+// A pair enters the clip when both areas exceed 1e-14 and the quads' AABBs
+// meet; its IoU is inter / union where union = area_p + area_q - inter
+// exceeds 1e-12, else 0.  The flat indices i * m + j of pairs whose clip
+// overflows go to `overflow` (room for n * m), their entries left 0 for the
+// caller's scalar clip; returns how many.
+int64_t polyclip_pairwise_iou_quads(const double* p, const double* area_p,
+                                    int32_t n, const double* q,
+                                    const double* area_q, int32_t m,
+                                    float* out, int64_t* overflow) {
+  const Pt* pp = reinterpret_cast<const Pt*>(p);
+  const Pt* qq = reinterpret_cast<const Pt*>(q);
+  std::vector<Aabb> bq(m);
+  for (int j = 0; j < m; ++j) bq[j] = quad_aabb(qq + 4 * j);
+  int64_t n_over = 0;
+  for (int i = 0; i < n; ++i) {
+    const Aabb bp = quad_aabb(pp + 4 * i);
+    for (int j = 0; j < m; ++j) {
+      const int64_t k = static_cast<int64_t>(i) * m + j;
+      out[k] = 0.0f;
+      const Aabb& b = bq[j];
+      if (bp.nan || b.nan || !(area_p[i] > 1e-14) || !(area_q[j] > 1e-14) ||
+          !(bp.lo_x <= b.hi_x && b.lo_x <= bp.hi_x && bp.lo_y <= b.hi_y &&
+            b.lo_y <= bp.hi_y))
+        continue;
+      double inter;
+      if (!quad_intersection_area(pp + 4 * i, qq + 4 * j, &inter)) {
+        overflow[n_over++] = k;
+        continue;
+      }
+      const double uni = area_p[i] + area_q[j] - inter;
+      out[k] = static_cast<float>(uni > 1e-12 ? inter / uni : 0.0);
+    }
+  }
+  return n_over;
 }
 }

@@ -5,12 +5,19 @@ boxes per image, so a host numpy implementation is cheap; it exists to
 replicate the reference semantics exactly (``cv2.minAreaRect`` included,
 reference ``post_processor_rotated_boxes.py:253-286``).  Device counterparts
 live in ``glass_tpu_torch.ops``.
+
+The rotated IoU's clip runs in the native library (``native/polyclip.cpp``,
+one call a matrix, bit for bit the numpy body kept here) whenever it loads;
+the numpy clip is the path without it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import cv2
+
+from ..native import load_polyclip
+from ..utils import trace
 
 
 def boxes_to_polygons_np(boxes: np.ndarray) -> np.ndarray:
@@ -134,10 +141,32 @@ def pairwise_iou_rotated_np(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarra
     a1 = np.asarray(boxes1[:, 2] * boxes1[:, 3], np.float64)
     a2 = np.asarray(boxes2[:, 2] * boxes2[:, 3], np.float64)
     n, m = len(boxes1), len(boxes2)
-    out = np.zeros((n, m), np.float32)
     if n == 0 or m == 0:
-        return out
+        return np.zeros((n, m), np.float32)
+    lib = load_polyclip()
+    if lib is None:
+        return _pairwise_iou_quads_numpy(p1, a1, p2, a2)
+    out, overflow = lib.pairwise_iou_quads(p1, a1, p2, a2)
+    trace.count("glass.post.merge.fallback_pairs", len(overflow))
+    if len(overflow):  # quads sharing an edge: the scalar clip, as in the numpy body
+        ii, jj = np.divmod(overflow, m)
+        out[ii, jj] = _iou_from_inter(
+            np.array([_convex_quad_intersection_area(p1[i], p2[j]) for i, j in zip(ii, jj)]),
+            a1[ii], a2[jj],
+        )
+    return out
 
+
+def _iou_from_inter(inter: np.ndarray, a1: np.ndarray, a2: np.ndarray) -> np.ndarray:
+    union = a1 + a2 - inter
+    vals = np.where(union > 1e-12, inter / np.where(union == 0, 1.0, union), 0.0)
+    return vals.astype(np.float32)
+
+
+def _pairwise_iou_quads_numpy(p1, a1, p2, a2) -> np.ndarray:
+    """The numpy body of ``pairwise_iou_rotated_np`` on its float64 polygons
+    and areas: the path without the native library, and its test twin."""
+    out = np.zeros((len(p1), len(p2)), np.float32)
     # AABB prefilter: trivially-disjoint pairs never enter the clipper.
     lo1, hi1 = p1.min(axis=1), p1.max(axis=1)
     lo2, hi2 = p2.min(axis=1), p2.max(axis=1)
@@ -149,16 +178,14 @@ def pairwise_iou_rotated_np(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarra
     ii, jj = np.nonzero(overlap)
     if len(ii) == 0:
         return out
+    trace.count("glass.post.merge.fallback_pairs", len(ii))
     inter = _quad_intersection_areas_batch(p1[ii], p2[jj])
-    union = a1[ii] + a2[jj] - inter
-    vals = np.where(union > 1e-12, inter / np.where(union == 0, 1.0, union), 0.0)
-    out[ii, jj] = vals.astype(np.float32)
+    out[ii, jj] = _iou_from_inter(inter, a1[ii], a2[jj])
     return out
 
 
-def pairwise_ioa_rotated_np(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarray:
+def _ioa_from_iou(iou: np.ndarray, boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarray:
     """IoA via the reference's algebraic identity (structures/boxes.py:23-48)."""
-    iou = pairwise_iou_rotated_np(boxes1, boxes2)
     a1 = (boxes1[:, 2] * boxes1[:, 3])[:, None]
     a2 = (boxes2[:, 2] * boxes2[:, 3])[None, :]
     inter = (a1 + a2) * iou / (1.0 + iou)
@@ -168,20 +195,33 @@ def pairwise_ioa_rotated_np(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarra
     return ioa.astype(np.float32)
 
 
+def pairwise_ioa_rotated_np(boxes1: np.ndarray, boxes2: np.ndarray) -> np.ndarray:
+    return _ioa_from_iou(pairwise_iou_rotated_np(boxes1, boxes2), boxes1, boxes2)
+
+
 def nms_rotated_np(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float) -> np.ndarray:
     """Greedy rotated NMS -> kept indices in score order."""
+    return _nms_rotated_with_iou(boxes, scores, iou_threshold)[0]
+
+
+def _nms_rotated_with_iou(boxes, scores, iou_threshold):
+    """``nms_rotated_np``'s kept indices, and the IoU of ``boxes[keep]``
+    with itself: the rows and columns of the kept positions of the matrix
+    NMS computed, every entry the same pair of the same boxes, so the same
+    bits as ``pairwise_iou_rotated_np(boxes[keep], boxes[keep])``."""
     order = np.argsort(-scores, kind="stable")
     iou = pairwise_iou_rotated_np(boxes[order], boxes[order])
     n = len(order)
     suppressed = np.zeros(n, bool)
-    keep = []
+    kept = []
     for i in range(n):
         if suppressed[i]:
             continue
-        keep.append(order[i])
+        kept.append(i)
         suppressed |= iou[i] > iou_threshold
         suppressed[i] = False
-    return np.asarray(keep, np.int64)
+    kept = np.asarray(kept, np.int64)
+    return order[kept].astype(np.int64), iou[np.ix_(kept, kept)]
 
 
 def polygons_to_rotated_boxes_np(

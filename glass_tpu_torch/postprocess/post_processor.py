@@ -24,13 +24,17 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..native import load_polyclip
 from ..structures import Instances
 from ..text import TextCodec, decode_instance_texts
 from ..utils import trace
 from .np_geometry import (
+    _ioa_from_iou,
+    _nms_rotated_with_iou,
     boxes_to_polygons_np,
     nms_rotated_np,
     pairwise_ioa_rotated_np,
+    pairwise_iou_rotated_np,
     polygons_to_rotated_boxes_np,
 )
 
@@ -54,6 +58,7 @@ class PostProcessorRotatedBoxes:
         self.on_device = bool(getattr(cfg.POST_PROCESSING, "ON_DEVICE", False))
         self.device = resolve_device(device) if self.on_device else None
         assert self.valid_score <= self.detect_threshold
+        load_polyclip()  # the rotated IoU's native clip: built in set-up, not in a request
 
     def __call__(self, preds: Instances) -> Instances:
         if self.skip_all:
@@ -84,10 +89,17 @@ class PostProcessorRotatedBoxes:
                 return self._merge_on_device(
                     preds, ioa_threshold, pairs_height_ratio_thresh
                 )
+            # One IoU matrix a round: NMS's matrix of the merged boxes, at
+            # the kept positions, is the next round's (the same boxes).
+            iou, rounds = None, 0
             while True:
+                rounds += 1
                 boxes = np.asarray(preds.pred_boxes, np.float32).copy()
                 scores = np.asarray(preds.scores, np.float32)
-                ioa = pairwise_ioa_rotated_np(boxes, boxes)
+                if iou is None:
+                    iou = pairwise_iou_rotated_np(boxes, boxes)
+                    trace.count("glass.post.merge.matrices")
+                ioa = _ioa_from_iou(iou, boxes, boxes)
                 np.fill_diagonal(ioa, 0.0)
                 pairs = np.argwhere(np.triu(ioa) >= self.minimal_ioa_thresh)
                 if len(pairs) == 0:
@@ -121,8 +133,10 @@ class PostProcessorRotatedBoxes:
                 preds.pred_boxes = boxes
                 # d2's nms_rotated returns kept indices in descending-score
                 # order, reordering the predictions — preserved here.
-                keep = nms_rotated_np(boxes, scores, 0.99)
+                keep, iou = _nms_rotated_with_iou(boxes, scores, 0.99)
+                trace.count("glass.post.merge.matrices")
                 preds = preds[keep]
+            trace.count("glass.post.merge.rounds", rounds)
             return preds
 
     def _merge_on_device(
