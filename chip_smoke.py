@@ -189,14 +189,7 @@ Phases:
      profiled batch of each (device busy share); (e) two
      SERVE_DATA_PARALLEL replicas on the one card under vmap at b = 3 and
      4, bit for bit one replica's vmap program on the same rows.
- 14. the measurement entry points: ``python -m glass_tpu_torch.bench`` and
-     each ``glass_tpu_torch.tools`` module (e2e_breakdown under vmap,
-     train_bench through ``make_parallel_train_loop``, sustained_eval on 24
-     images, a profile_breakdown subset with the K1 and K2 rows, the serving
-     and training MFU tables, the branch knockouts, the backbone's backward
-     by stage with its kernel-time and bare-convolution witnesses,
-     serve_ab), in-process at reduced counts, each printing its JSON line;
-     K1, K1b and K2 must each be launched.
+ 14. unused (the phases keep their numbers, which PERF.md cites).
  15. the released-checkpoint verification entry point: ``python -m
      glass_tpu_torch.tools.verify_released_checkpoint`` in-process
      (``main(argv)``) on phase 6's eval set (8 glyph scenes of 720x1280,
@@ -815,9 +808,9 @@ def phase_main(images, state_dict, n_timed, out_dir):
     model_ms = []
     run_model = runner.run_model
 
-    def timed_run_model(image):
+    def timed_run_model(image, rid=None):
         t0 = time.perf_counter()
-        out = run_model(image)  # ends in the fetch to numpy, so the device is done
+        out = run_model(image, rid)  # ends in the fetch to numpy, so the device is done
         model_ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
@@ -2071,9 +2064,9 @@ def _phase_variants(state_dict, images, root, device, opts, eval_hw, n_timed, tt
         runner = GlassRunner(cfg=cfg, state_dict=state_dict, device=device)
         run_model, model_ms, dets = runner.run_model, [], []
 
-        def timed_run_model(image):
+        def timed_run_model(image, rid=None):
             t0 = time.perf_counter()
-            res = run_model(image)
+            res = run_model(image, rid)
             model_ms.append((time.perf_counter() - t0) * 1e3)
             dets.append(res["scores"][res["valid"]])
             return res
@@ -2447,9 +2440,9 @@ def _phase_model_variants(state_dict, images, root, device, opts, train_opts, st
         runner = GlassRunner(cfg=cfg, state_dict=weights, device=device)
         run_model, model_ms, raws = runner.run_model, [], []
 
-        def timed_run_model(img, run_model=run_model, model_ms=model_ms, raws=raws):
+        def timed_run_model(img, rid=None, run_model=run_model, model_ms=model_ms, raws=raws):
             t0 = time.perf_counter()
-            res = run_model(img)
+            res = run_model(img, rid)
             model_ms.append((time.perf_counter() - t0) * 1e3)
             raws.append(res)
             return res
@@ -2557,7 +2550,7 @@ def served(runner, image):
     """``run_model``'s raw output for the resized image ``runner(image)``
     serves."""
     got, run = [], runner.run_model
-    runner.run_model = lambda resized: got.append(run(resized)) or got[-1]
+    runner.run_model = lambda resized, rid=None: got.append(run(resized, rid)) or got[-1]
     try:
         runner(image)
     finally:
@@ -3210,9 +3203,9 @@ def serve_timed(cfg, state_dict, images, device, n_timed):
     runner = GlassRunner(cfg=cfg, state_dict=state_dict, device=device)
     run_model, model_ms = runner.run_model, []
 
-    def timed_run_model(image):
+    def timed_run_model(image, rid=None):
         t0 = time.perf_counter()
-        out = run_model(image)
+        out = run_model(image, rid)
         model_ms.append((time.perf_counter() - t0) * 1e3)
         finite.append(all(np.isfinite(np.asarray(v, np.float32)).all() for k, v in out.items()
                           if isinstance(v, np.ndarray) and v.dtype.kind == "f"))
@@ -3324,7 +3317,9 @@ def _phase_fp16_remat_loop(state_dict, images, root, device, main, train, opts, 
         f"{p4}; launches {srv['launches']}; outputs finite {srv['finite']}")
     if not srv["finite"]:
         raise AssertionError("fp16 serving: non-finite outputs")
-    if cuda and srv["launches"] != {"roi_align_rotated": 3 * srv["n"], "crop_rois": srv["n"]}:
+    # K1 and K2 as the other phases count them (K3's launches are phase 16's)
+    got = {k: srv["launches"].get(k, 0) for k in ("roi_align_rotated", "crop_rois")}
+    if cuda and got != {"roi_align_rotated": 3 * srv["n"], "crop_rois": srv["n"]}:
         raise AssertionError(f"fp16 serving: launches {srv['launches']} over {srv['n']} images")
     res["serve"] = {k: v for k, v in srv.items() if k != "launches"}
     res["stages"] = fp16_stage_deltas(state_dict, images[0], device, opts)
@@ -3675,8 +3670,8 @@ class RawPredictions:
     def __enter__(self):
         collect = self.runner.collect_batch
 
-        def recorded(dispatched):
-            out = collect(dispatched)
+        def recorded(dispatched, rid=None):
+            out = collect(dispatched, rid)
             self.images.extend(out)
             return out
 
@@ -4252,55 +4247,6 @@ def _phase_vmap(state_dict, root, device, n_images, hw, opts):
     return out
 
 
-# 14: each measurement entry point in-process on the card, at reduced
-# counts (the tools' own defaults are the full measurements)
-TOOL_RUNS = (
-    ("bench", "glass_tpu_torch.bench", ["--frames", "3", "--rounds", "2", "--windows", "1", "--train-steps", "3"]),
-    ("e2e_breakdown", "glass_tpu_torch.tools.e2e_breakdown", ["--rounds", "1", "TPU.SERVE_BATCH_MODE", "vmap"]),
-    ("train_bench", "glass_tpu_torch.tools.train_bench", ["--steps", "5", "--windows", "1", "--flops"]),
-    ("sustained_eval", "glass_tpu_torch.tools.sustained_eval", ["--images", "24"]),
-    ("profile_breakdown", "glass_tpu_torch.tools.profile_breakdown",
-     ["--k", "5", "topk_p2", "topk_all5", "iou1000", "nms1000", "select_proposals", "stage_crops",
-      "stage_global_pool", "stage_decode", "stage_full"]),
-    ("mfu_breakdown", "glass_tpu_torch.tools.mfu_breakdown", ["--k", "3", "--steps", "3"]),
-    ("train_mfu_breakdown", "glass_tpu_torch.tools.train_mfu_breakdown", ["--steps", "2", "--trials", "3"]),
-    ("backbone_bwd_breakdown", "glass_tpu_torch.tools.backbone_bwd_breakdown", ["--k", "10", "--trials", "3"]),
-    ("serve_ab", "glass_tpu_torch.tools.serve_ab", ["--frames", "3"]),
-)
-TOOL_KERNELS = ("roi_align_rotated", "roi_align_rotated_backward", "crop_rois")
-
-
-def phase_tools() -> dict:
-    """Phase 14: ``python -m glass_tpu_torch.bench`` and every
-    ``glass_tpu_torch.tools`` entry point, in-process (``main(argv)``) on
-    the card at ``TOOL_RUNS``' counts; each prints its JSON line.  Fails if
-    a tool raises, reports another device than the card, or if K1, K1b or
-    K2 was launched no time across the phase."""
-    import gc
-    import importlib
-
-    from glass_tpu_torch.ops import _cuda
-
-    _cuda.LAUNCHES.clear()
-    took = {}
-    for name, module, argv in TOOL_RUNS:
-        t0 = time.perf_counter()
-        res = importlib.import_module(module).main(argv)
-        took[name] = time.perf_counter() - t0
-        device = res["detail"]["device"] if name == "bench" else res["device"]
-        if device["platform"] != "gpu":
-            raise AssertionError(f"phase 14: {name} ran on {device}")
-        log(f"phase 14 {name}: {took[name]:.1f} s")
-        gc.collect()
-        torch.cuda.empty_cache()
-    launches = dict(_cuda.LAUNCHES)
-    missing = [k for k in TOOL_KERNELS if not launches.get(k)]
-    log(f"phase 14 ({card_line()}): {len(TOOL_RUNS)} entry points in {sum(took.values()):.1f} s; launches {launches}")
-    if missing:
-        raise AssertionError(f"phase 14: no launch of {missing}")
-    return {"launches": launches, "s": took}
-
-
 # 15: the released-checkpoint verification entry point
 VERIFY_RUNS = (  # (run, --expected-hmean, exit code, pass): (a) records, (b) passes, (c) fails
     ("a", None, 0, True),
@@ -4519,7 +4465,7 @@ def kernel_entry(name, source, replaces, launches, rows):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,15,16")
     ap.add_argument("--out", default="chip_smoke_out", help="directory for the build log and the profile table")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -4541,7 +4487,7 @@ def main():
     rng = np.random.RandomState(0)
     rois_np = word_rois(rng, N_ROIS, *BUCKET_HW)
     k1_rows = k2_rows = k1b_rows = None
-    main = train = variants = distributed = fp16 = vmap = tools = verified = k3 = None
+    main = train = variants = distributed = fp16 = vmap = verified = k3 = None
     seconds, lap = {}, [time.perf_counter()]
 
     def mark(n):  # the seconds of phase n, from the end of the one before
@@ -4597,16 +4543,13 @@ def main():
         vmap.update(phase_vmap(state_dict, args.out))
         mark(13)
         log(f"phase 13: {seconds[13]} s")
-    if 14 in phases:
-        tools = phase_tools()
-        mark(14)
     if 15 in phases:
         verified = phase_verify(state_dict, args.out)
         mark(15)
     if 16 in phases:
         k3 = phase_k3(images, state_dict)
         mark(16)
-    log(f"seconds by phase (in the order run; 'weights' is the seeded model of phases 4-6 and 9-15): {seconds}, "
+    log(f"seconds by phase (in the order run; 'weights' is the seeded model of phases 4-6, 9-13 and 15): {seconds}, "
         f"{sum(seconds.values()):.1f} in all")
 
     kernels = []
@@ -4619,7 +4562,6 @@ def main():
     launches.update((distributed or {}).get("launches", {}))
     launches.update((fp16 or {}).get("launches", {}))
     launches.update((vmap or {}).get("launches", {}))
-    launches.update((tools or {}).get("launches", {}))
     launches.update((verified or {}).get("launches", {}))
     fp16_rows = (fp16 or {}).get("kernels", {})
     per_image = (main or {}).get("n_images", 1)
@@ -4656,7 +4598,7 @@ def main():
         f"three poolers); launches over phase 4's {per_image} main-path images, phase 8's training "
         f"steps, phase 10's serving and training, phase 11's distributed training and serving, "
         f"phase 12's fp16 serving and training, remat and chunked training, phase 13's vmap and "
-        f"map serving, phase 14's measurement tools and phase 15's three verification runs (K3: "
+        f"map serving and phase 15's three verification runs (K3: "
         f"its launches over phase 16's images, its time on phase 16's first image); max_abs_err over every dtype's case (phase 12's fp16 ones and phase 13's "
         f"batched K2 included), on {card}")
     print(json.dumps({"kernels": kernels}))

@@ -530,11 +530,11 @@ def get_default_config() -> CN:
     # up to rounding.  Their speeds on the card are in PERF.md.
     _C.TPU.SERVE_BATCH_MODE = "map"
     # Thread-pool width for per-image host post-processing inside
-    # eval_batch_call (numpy releases the GIL). 0 = sequential.
+    # eval_batch_call and batch_call (numpy releases the GIL). 0 = sequential.
     _C.TPU.POSTPROCESS_WORKERS = 0
     # eval_batch_call pipeline: fetch finished batches on a worker thread
     # (device->host copies release the GIL) so the transfer overlaps host
-    # post-processing of the previous chunk. False = 1-deep pipeline.
+    # post-processing of the previous chunk. False = the batches in turn.
     _C.TPU.ASYNC_FETCH = True
     _C.TPU.COMPUTE_DTYPE = "bfloat16"  # conv/matmul compute dtype
     # Raw-image crop pooler sampling grid (static!). The reference uses a

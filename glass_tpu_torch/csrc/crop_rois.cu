@@ -19,8 +19,8 @@
 //          mean) / std so out-of-bounds taps stay exact zeros
 //   out    (B, R, OH, OW, 3): f32 for uint8 input, else the image dtype
 //
-// What bounds it on the H100 (device times: chip_smoke.py phase 3 and
-// glass_tpu_torch/study/kernel_variants.py).  100 crops of 128 x 128 x 3
+// What bounds it on the H100 (device times: chip_smoke.py phase 3; the
+// design alternatives below were timed on the card, PERF.md).  100 crops of 128 x 128 x 3
 // write 9.8 MB in bf16 and read a few bytes a tap from an image that sits
 // in L2: the byte bound is ~4 us.  The first form (one 128-thread block per
 // output row, one pixel a thread, every thread repeating the roi set-up,
@@ -39,7 +39,7 @@
 //   gives its crop a batch axis of the grid): block (r, band, b) reads
 //   image b, offset by b * H * W * 3 elements in 64 bits, so only one
 //   image's element offsets need 32 bits.  3 rows a block is within ~2 % of the fastest of 1, 2, 4 and
-//   8 in every case of the study.  A thread takes one output column of its
+//   8 in every case timed.  A thread takes one output column of its
 //   band (and every 128th after it): neighbouring threads take
 //   neighbouring pixels (a warp's taps share cache lines, its stores are
 //   contiguous), and the column's terms are computed once, the sample
@@ -49,10 +49,10 @@
 // * Every thread computes the roi's frame (sincosf, bin sizes by exact
 //   reciprocals): no shared memory, no barrier.  The frame computed once a
 //   block by thread 0 into shared memory behind a barrier is as fast or
-//   slower, by up to ~12 % (the study's kFrameOnce).
+//   slower, by up to ~12 % (timed as a design alternative).
 // * Stores: three scalar stores a pixel.  A run of 16 bytes' worth of
-//   pixels a thread written as three 16-byte stores (the study's
-//   kVectorStore) is as fast in bf16 at sampling ratio 1 and slower, by up
+//   pixels a thread written as three 16-byte stores (timed as a
+//   design alternative) is as fast in bf16 at sampling ratio 1 and slower, by up
 //   to ~22 %, in every other case: the stores do not set the time.
 // * The wrapper's fixed sampling ratios 1 and 2 are compile-time grids:
 //   their loops unroll and their divisions by the grid become the exact

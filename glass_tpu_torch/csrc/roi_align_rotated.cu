@@ -20,8 +20,8 @@
 //   out         (R, PH, PW, C) in the feature dtype, f32 accumulation rounded
 //               once (__float2bfloat16_rn / __float2half_rn, torch's rounding)
 //
-// What bounds it on the H100 (device times: chip_smoke.py phase 2 and
-// glass_tpu_torch/study/kernel_variants.py).  The first form (one
+// What bounds it on the H100 (device times: chip_smoke.py phase 2; the
+// design alternatives below were timed on the card, PERF.md).  The first form (one
 // 256-thread block per bin, one channel a thread) ran at 7 % of the byte
 // bound and no faster in bf16 than in f32: every thread repeated the roi
 // set-up (cosf/sinf) and every sample's coordinate and tap math, and moved
@@ -37,7 +37,7 @@
 //
 // Design:
 // * Work unit: one 8-warp block per (roi, tile of bins), roi-major: a band
-//   of all bin rows by max(2, kTileBins / rows) columns.  The study's other
+//   of all bin rows by max(2, kTileBins / rows) columns.  The other
 //   tiles (1 to all rows by 1 to 16 columns) are as fast or slower at the
 //   three poolers, by up to ~2.5x; with every roi on the 4x4 grid, one
 //   column of all rows is ~4 % faster.  A warp takes every 8th bin of the tile.  Lanes run

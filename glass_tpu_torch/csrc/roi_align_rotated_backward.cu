@@ -26,12 +26,11 @@
 // What bounds it on the H100: the function's output is the dense gradient
 // of every packed row, zeros included, so the least bytes are the upstream
 // gradient read once plus the dense gradient written once in its own dtype
-// (chip_smoke.py phase 7 prints that bound).  The per-tap form
-// (study/kernel_variants.cu, the baseline) added every tap of every sample
-// into an f32 buffer that the wrapper zeroed whole, with one scalar L2
-// atomic a channel, and left the cast to bf16 to a separate pass: ~100 M
-// atomics and ~280 MB of memset a step, more than the bound in the memset
-// alone.
+// (chip_smoke.py phase 7 prints that bound).  The per-tap form (the
+// first design) added every tap of every sample into an f32 buffer that
+// the wrapper zeroed whole, with one scalar L2 atomic a channel, and left
+// the cast to bf16 to a separate pass: ~100 M atomics and ~280 MB of
+// memset a step, more than the bound in the memset alone.
 //
 // Design, three kernels a call, no host sync:
 // 1. mark_kernel, one block per (roi, tile of bins): computes the tile's
@@ -68,7 +67,7 @@
 //    channels) and is counted in stats[0].  A block holds 53 KB (bf16):
 //    four an SM (fp16 the same), with the carveout set to all shared memory.  The
 //    accumulation is bound by shared-memory bandwidth (a read and a write
-//    of 4 bytes a merged tap and channel).  The study's first form (shared
+//    of 4 bytes a merged tap and channel).  The first form (shared
 //    atomics into a tile of all footprint rows x 32 channels, the chunks of
 //    a tile in turn) ran slower than the per-tap form.
 // 3. finish_kernel, one block per kFinishUnits units: writes every row of
@@ -107,20 +106,7 @@ struct RoiFrame {
 // index map holds and the touched rows the accumulator holds a round.
 struct Plan {
   int tile_h, tile_w, tiles_w, tiles, cap_rows, cap_slots;
-  // the study's trace (null on the port's path): kTraceStamps %globaltimer
-  // stamps a scatter block of channel group 0, at the starts of its phases
-  unsigned long long* trace;
 };
-
-constexpr int kTraceStamps = 6;
-
-// Stamp i of this scatter block's trace, when there is one.
-__device__ __forceinline__ void stamp(const Plan& p, int i) {
-  if (p.trace == nullptr || threadIdx.x != 0 || blockIdx.y != 0) return;
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  p.trace[(size_t)blockIdx.x * kTraceStamps + i] = t;
-}
 
 struct Unit {
   int r, h0, h1, w0, w1;  // roi, bin rows [h0, h1), bin columns [w0, w1)
@@ -303,16 +289,8 @@ mark_kernel(const float* __restrict__ rois, const float* __restrict__ level_meta
 // ---------------------------------------------------------------------------
 
 // Hopper's vector reduction into global memory (red.global.add.v4.f32).
-template <bool kVecFlush>
 __device__ __forceinline__ void flush_add(float* dst, float4 v) {
-  if constexpr (kVecFlush) {
-    atomicAdd(reinterpret_cast<float4*>(dst), v);
-  } else {
-    atomicAdd(dst + 0, v.x);
-    atomicAdd(dst + 1, v.y);
-    atomicAdd(dst + 2, v.z);
-    atomicAdd(dst + 3, v.w);
-  }
+  atomicAdd(reinterpret_cast<float4*>(dst), v);
 }
 
 // Shared memory of a scatter block: the accumulator (cap_slots rows of
@@ -367,7 +345,7 @@ __device__ __forceinline__ void sts(float* p, const float (&v)[kVec]) {
 // The direct path of a tile (the per-tap form with 16-byte reductions): warps
 // take bins, every lane computes each sample's taps and adds w * g of 4
 // channels a quad into the packed rows, channels [c0, c0 + kGroup).
-template <typename T, bool kVecFlush, int kThreadsX>
+template <typename T, int kThreadsX>
 __device__ void scatter_direct(const RoiFrame& fr, const Unit& t, const T* __restrict__ grad_out,
                                int C, int c0, int PH, int PW, float* __restrict__ acc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -399,7 +377,7 @@ __device__ void scatter_direct(const RoiFrame& fr, const Unit& t, const T* __res
         for (int q = 0; q < kQuads; ++q) {
           const int c = c0 + 4 * (lane + 32 * q);
           if (c < C)
-            flush_add<kVecFlush>(row + c, make_float4(w * g[q].x, w * g[q].y, w * g[q].z,
+            flush_add(row + c, make_float4(w * g[q].x, w * g[q].y, w * g[q].z,
                                                       w * g[q].w));
         }
       }
@@ -418,7 +396,7 @@ __device__ void scatter_direct(const RoiFrame& fr, const Unit& t, const T* __res
 // stores, no atomics, and each touched row is flushed once.  When the
 // touched rows outnumber the accumulator's cap_slots rows, the block takes
 // them in rounds (at most kMaxRounds, else the direct path).
-template <typename T, int kVec, bool kVecFlush>
+template <typename T, int kVec>
 __global__ void __launch_bounds__(kGroup / kVec, 4)
 scatter_kernel(const T* __restrict__ grad_out, int C, const UnitInfo* __restrict__ info, int PH,
                int PW, Plan p, float* __restrict__ acc, int* __restrict__ stats) {
@@ -438,7 +416,6 @@ scatter_kernel(const T* __restrict__ grad_out, int C, const UnitInfo* __restrict
   __shared__ int warp_total[kWarpsX];
   __shared__ int n_slots;
 
-  stamp(p, 0);
   const Unit t = unit_of(blockIdx.x, p, PH, PW);
   const int tw = t.w1 - t.w0;
   const int bins = (t.h1 - t.h0) * tw;
@@ -461,13 +438,11 @@ scatter_kernel(const T* __restrict__ grad_out, int C, const UnitInfo* __restrict
     *reinterpret_cast<uint4*>(g_s + k * kGroup + c) = v;
   }
   __syncthreads();
-  stamp(p, 1);
   const int n = fr.gh * fr.gw;
   if (n <= 0 || fp.fh == 0) return;
   if (path) {
     if (threadIdx.x == 0 && blockIdx.y == 0) atomicAdd(stats + 0, 1);
-    scatter_direct<T, kVecFlush, kThreadsX>(fr, t, grad_out, C, c0, PH, PW, acc);
-    stamp(p, 5);
+    scatter_direct<T, kThreadsX>(fr, t, grad_out, C, c0, PH, PW, acc);
     return;
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -502,7 +477,6 @@ scatter_kernel(const T* __restrict__ grad_out, int C, const UnitInfo* __restrict
     tap_w[e] = w;
   }
   __syncthreads();
-  stamp(p, 2);
 
   // Slots: an exclusive scan of the touched flags, footprint order.
   const int per = (n_fp + kThreadsX - 1) / kThreadsX;
@@ -525,8 +499,7 @@ scatter_kernel(const T* __restrict__ grad_out, int C, const UnitInfo* __restrict
   const int rounds = (n_slots + p.cap_slots - 1) / p.cap_slots;
   if (rounds > kMaxRounds) {  // too many rows for the rounds
     if (threadIdx.x == 0 && blockIdx.y == 0) atomicAdd(stats + 0, 1);
-    scatter_direct<T, kVecFlush, kThreadsX>(fr, t, grad_out, C, c0, PH, PW, acc);
-    stamp(p, 5);
+    scatter_direct<T, kThreadsX>(fr, t, grad_out, C, c0, PH, PW, acc);
     return;
   }
   for (int e = threadIdx.x; e < total; e += kThreadsX) {
@@ -535,7 +508,6 @@ scatter_kernel(const T* __restrict__ grad_out, int C, const UnitInfo* __restrict
                             li.z < 0 ? -1 : map[li.z], li.w < 0 ? -1 : map[li.w]);
   }
   __syncthreads();
-  stamp(p, 3);
   // Merge each bin's taps of one slot (the samples of a bin share its
   // gradient, so their weights add): the first tap of a slot in the bin's
   // order takes the sum of the weights, in that order; the later ones drop
@@ -619,17 +591,15 @@ scatter_kernel(const T* __restrict__ grad_out, int C, const UnitInfo* __restrict
       }
     }
     __syncthreads();
-    if (lo == 0) stamp(p, 4);
     // flush: one 16-byte reduction a (slot, 4 channels)
     constexpr int kQuads = kGroup / 4;
     for (int i = threadIdx.x; i < (hi - lo) * kQuads; i += kThreadsX) {
       const int sl = i / kQuads;
       const int c = c0 + 4 * (i - sl * kQuads);
-      if (c < C) flush_add<kVecFlush>(acc + (long long)slot_row[sl] * C + c, slots4[i]);
+      if (c < C) flush_add(acc + (long long)slot_row[sl] * C + c, slots4[i]);
     }
     __syncthreads();  // before the next round zeroes the slots
   }
-  stamp(p, 5);
 }
 
 // ---------------------------------------------------------------------------
@@ -650,9 +620,7 @@ __device__ __forceinline__ unsigned pack_pair(float lo, float hi, __half*) {
          ((unsigned)__half_as_ushort(__float2half_rn(hi)) << 16);
 }
 
-// kMarked false (a study variant): `acc` was zeroed whole, every unit is
-// read.
-template <typename TOut, bool kMarked>
+template <typename TOut>
 __global__ void __launch_bounds__(kThreads)
 finish_kernel(const float* acc, TOut* out, int C, long long n_rows, int* __restrict__ flags) {
   __shared__ int marked[kFinishUnits];
@@ -660,10 +628,10 @@ finish_kernel(const float* acc, TOut* out, int C, long long n_rows, int* __restr
   const long long u0 = (long long)blockIdx.x * kFinishUnits;
   if (threadIdx.x < kFinishUnits) {
     const long long u = u0 + threadIdx.x;
-    marked[threadIdx.x] = !kMarked || (u < n_units && flags[u] != 0);
+    marked[threadIdx.x] = u < n_units && flags[u] != 0;
   }
   __syncthreads();
-  if (kMarked && threadIdx.x < kFinishUnits && u0 + threadIdx.x < n_units)
+  if (threadIdx.x < kFinishUnits && u0 + threadIdx.x < n_units)
     flags[u0 + threadIdx.x] = 0;
   constexpr int kVec = 16 / sizeof(TOut);
   const long long r0 = u0 * kUnitRows;
@@ -706,9 +674,9 @@ struct Args {
   UnitInfo* info;
 };
 
-template <typename T, int kVec, bool kVecFlush>
+template <typename T, int kVec>
 int launch_scatter(const Args& a, const Plan& p, cudaStream_t s) {
-  auto kernel = scatter_kernel<T, kVec, kVecFlush>;
+  auto kernel = scatter_kernel<T, kVec>;
   const int smem = scatter_smem_bytes(p.cap_rows, p.cap_slots, (int)sizeof(T));
   static int smem_set = 0;  // the largest dynamic shared memory allowed so far
   if (smem > smem_set) {
@@ -727,26 +695,24 @@ int launch_scatter(const Args& a, const Plan& p, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <int kVec, bool kVecFlush>
 int launch_scatter_any(const Args& a, const Plan& p, cudaStream_t s) {
-  if (a.dtype == kFloat32) return launch_scatter<float, kVec, kVecFlush>(a, p, s);
-  if (a.dtype == kFloat16) return launch_scatter<__half, kVec, kVecFlush>(a, p, s);
-  return launch_scatter<__nv_bfloat16, kVec, kVecFlush>(a, p, s);
+  if (a.dtype == kFloat32) return launch_scatter<float, kScatterVec>(a, p, s);
+  if (a.dtype == kFloat16) return launch_scatter<__half, kScatterVec>(a, p, s);
+  return launch_scatter<__nv_bfloat16, kScatterVec>(a, p, s);
 }
 
-template <bool kMarked>
 int launch_finish(const Args& a, cudaStream_t s) {
   const long long units = (a.n_rows + kUnitRows - 1) / kUnitRows;
   const unsigned blocks = (unsigned)((units + kFinishUnits - 1) / kFinishUnits);
   if (blocks == 0) return 0;
   if (a.out_dtype == kFloat32) {
-    finish_kernel<float, kMarked><<<blocks, kThreads, 0, s>>>(a.acc, static_cast<float*>(a.out),
-                                                              a.C, a.n_rows, a.flags);
+    finish_kernel<float><<<blocks, kThreads, 0, s>>>(a.acc, static_cast<float*>(a.out), a.C,
+                                                     a.n_rows, a.flags);
   } else if (a.out_dtype == kFloat16) {
-    finish_kernel<__half, kMarked><<<blocks, kThreads, 0, s>>>(
+    finish_kernel<__half><<<blocks, kThreads, 0, s>>>(
         a.acc, static_cast<__half*>(a.out), a.C, a.n_rows, a.flags);
   } else {
-    finish_kernel<__nv_bfloat16, kMarked><<<blocks, kThreads, 0, s>>>(
+    finish_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
         a.acc, static_cast<__nv_bfloat16*>(a.out), a.C, a.n_rows, a.flags);
   }
   return (int)cudaGetLastError();
@@ -775,23 +741,21 @@ Plan make_plan(const Args& a, int tile_h, int tile_w, int cap_rows, int cap_slot
   p.tiles = ((a.PH + p.tile_h - 1) / p.tile_h) * p.tiles_w;
   p.cap_rows = cap_rows;
   p.cap_slots = cap_slots;
-  p.trace = nullptr;
   return p;
 }
 
-// Mark, scatter with the given scatter launch, finish.  The finish kernel
-// runs even when a launch before it failed, so the flags are left zero.
-template <typename Scatter>
-int launch_backward(const Args& a, const Plan& p, cudaStream_t s, Scatter scatter) {
+// Mark, scatter, finish.  The finish kernel runs even when a launch before
+// it failed, so the flags are left zero.
+int launch_backward(const Args& a, const Plan& p, cudaStream_t s) {
   int status = 0;
   if (a.R > 0) {
     mark_kernel<<<(unsigned)(a.R * p.tiles), kMarkThreads, 0, s>>>(
         a.rois, a.level_meta, a.levels, a.grid, a.PH, a.PW, p, a.C, a.n_rows, a.flags, a.acc,
         a.stats, a.info);
     status = (int)cudaGetLastError();
-    if (status == 0) status = scatter();
+    if (status == 0) status = launch_scatter_any(a, p, s);
   }
-  const int fin = launch_finish<true>(a, s);
+  const int fin = launch_finish(a, s);
   return status ? status : fin;
 }
 
@@ -815,7 +779,5 @@ extern "C" int glass_roi_align_rotated_backward(
   const k1b::Plan p = k1b::make_plan(a, tile_h, tile_w, cap_rows, cap_slots);
   const int bad = k1b::check(a, p, k1b::scatter_smem_bytes(cap_rows, cap_slots, 4));
   if (bad) return bad;
-  const cudaStream_t s = (cudaStream_t)stream;
-  return k1b::launch_backward(
-      a, p, s, [&] { return k1b::launch_scatter_any<k1b::kScatterVec, true>(a, p, s); });
+  return k1b::launch_backward(a, p, (cudaStream_t)stream);
 }

@@ -169,6 +169,25 @@ def _unpack_masks(m: np.ndarray) -> np.ndarray:
     return m
 
 
+def _instances(out: dict, hw) -> Instances:
+    """One image's fetched outputs as raw instances of size ``hw``: the
+    valid rows, their text fields and, with the mask head, their masks
+    and ``pred_rboxes``."""
+    valid = out["valid"]
+    inst = Instances(
+        hw,
+        pred_boxes=out["boxes"][valid],
+        scores=out["scores"][valid],
+        pred_classes=out["classes"][valid],
+        orientations=out["orientations"][valid],
+    )
+    _set_text_fields(inst, out, valid)
+    if "mask_probs" in out:
+        inst.pred_masks = _unpack_masks(out["mask_probs"][valid])
+        inst.pred_rboxes = out["boxes"][valid]
+    return inst
+
+
 _NUMPY_DTYPES = {
     torch.float32: np.float32, torch.float16: np.float16, torch.int32: np.int32,
     torch.int64: np.int64, torch.uint8: np.uint8, torch.bool: np.bool_,
@@ -263,7 +282,7 @@ class GlassRunner:
             random_init_(model, 0)
         self.model = model.eval().to(self.device)
         self.replicas = [self.model]
-        if getattr(self.cfg.TPU, "SERVE_DATA_PARALLEL", False):
+        if self.cfg.TPU.SERVE_DATA_PARALLEL:
             if serve_devices:
                 devices = [torch.device(d) for d in serve_devices]
             elif self.device.type == "cuda":
@@ -306,6 +325,25 @@ class GlassRunner:
         if max_dim < self.min_target_size:
             return min(self.max_upscale_ratio, self.min_target_size / max_dim)
         return 1.0
+
+    def _resize_demo(self, image: np.ndarray):
+        """The demo scale rule on a BGR image: the float32 image resized by
+        ``get_inference_scale_ratio``, and that ratio."""
+        ratio = self.get_inference_scale_ratio(image.shape)
+        if ratio == 1:
+            return image.astype(np.float32), ratio
+        new_h = int(np.round(ratio * image.shape[0]))
+        new_w = int(np.round(ratio * image.shape[1]))
+        return cv2.resize(image.astype(np.float32), (new_w, new_h), interpolation=cv2.INTER_LINEAR), ratio
+
+    def _resize_shortest_edge(self, image: np.ndarray, keep_uint8: bool = False) -> np.ndarray:
+        """d2's ``ResizeShortestEdge`` (MIN/MAX_SIZE_TEST) on a BGR image, in
+        float32, or in uint8 for a uint8 image under ``keep_uint8``
+        (TPU.EVAL_UINT8_TRANSFER: d2's eval mapper resizes uint8)."""
+        nh, nw = shortest_edge_size(*image.shape[:2], self.min_target_size, self.max_target_size)
+        if not keep_uint8 or image.dtype != np.uint8:
+            image = image.astype(np.float32)
+        return cv2.resize(image, (nw, nh))
 
     def _pick_bucket(self, h: int, w: int) -> Tuple[int, int]:
         ph = round_up(h, self.pad_multiple)
@@ -366,25 +404,9 @@ class GlassRunner:
         return det
 
     def run_on_resized(self, image: np.ndarray, rid=None) -> Instances:
-        """Raw (un-postprocessed) instances at the resized image's scale."""
-        h, w = image.shape[:2]
-        with torch.inference_mode():
-            out = self._enqueue(image, rid)
-            with trace.span("glass.fetch", rid):
-                out = {k: v.cpu().numpy() for k, v in out.items()}
-                valid = out["valid"]
-                inst = Instances(
-                    (h, w),
-                    pred_boxes=out["boxes"][valid],
-                    scores=out["scores"][valid],
-                    pred_classes=out["classes"][valid],
-                    orientations=out["orientations"][valid],
-                )
-                _set_text_fields(inst, out, valid)
-                if "mask_probs" in out:
-                    inst.pred_masks = _unpack_masks(out["mask_probs"][valid])
-                    inst.pred_rboxes = out["boxes"][valid]
-        return inst
+        """Raw (un-postprocessed) instances at the resized image's scale:
+        ``run_model``, then its outputs unpacked."""
+        return _instances(self.run_model(image, rid), image.shape[:2])
 
     # -- batched serving --------------------------------------------------
     def dispatch_batch(self, images: List[np.ndarray], rid=None):
@@ -416,7 +438,7 @@ class GlassRunner:
         the single-image program over the rows of the uploaded batch, so its
         outputs equal b = 1 serving bit for bit; any other mode (glass_tpu's
         "vmap") runs ``glass_inference_batch``, one program over the batch."""
-        mode = str(getattr(self.cfg.TPU, "SERVE_BATCH_MODE", "map"))
+        mode = str(self.cfg.TPU.SERVE_BATCH_MODE)
         if mode == "map":
             def program(model, imgs: torch.Tensor, hws: np.ndarray) -> dict:
                 outs = [glass_inference_single(model, imgs[i], (int(hws[i, 0]), int(hws[i, 1])))
@@ -468,22 +490,7 @@ class GlassRunner:
         fetch, hws = dispatched
         with trace.span("glass.fetch", rid):
             out = finish_fetch(fetch)
-            results = []
-            for i in range(len(hws)):
-                valid = out["valid"][i]
-                inst = Instances(
-                    tuple(hws[i]),
-                    pred_boxes=out["boxes"][i][valid],
-                    scores=out["scores"][i][valid],
-                    pred_classes=out["classes"][i][valid],
-                    orientations=out["orientations"][i][valid],
-                )
-                _set_text_fields(inst, {k: v[i] for k, v in out.items()}, valid)
-                if "mask_probs" in out:
-                    inst.pred_masks = _unpack_masks(out["mask_probs"][i][valid])
-                    inst.pred_rboxes = out["boxes"][i][valid]
-                results.append(inst)
-        return results
+            return [_instances({k: v[i] for k, v in out.items()}, tuple(hws[i])) for i in range(len(hws))]
 
     def _model_postprocess(self, preds: Instances, height: int, width: int) -> Instances:
         """GlassRCNN._postprocess (reference glass_rcnn.py:103-128)."""
@@ -504,36 +511,33 @@ class GlassRunner:
             image = rgb2grey(image, three_channels=True)
         return image
 
+    def _post_one(self, preds: Instances, rid, resized_hw, orig_hw, ratio=None) -> Instances:
+        """One image's host stage.  The demo scale rule's paths (``ratio``
+        given) post-process at the resized size, scale the boxes back by
+        1 / ratio and give the instances the original size; the
+        shortest-edge paths (``ratio`` None) post-process back to the
+        original size.  Then the post-processor, with ``post_process``."""
+        with trace.span("glass.post", rid):
+            trace.count("glass.post.words", len(preds))
+            if ratio is None:
+                preds = self._model_postprocess(preds, *orig_hw)
+            else:
+                preds = self._model_postprocess(preds, *resized_hw)
+                if ratio != 1 and len(preds):
+                    preds.pred_boxes = scale_rotated_np(np.asarray(preds.pred_boxes), 1.0 / ratio, 1.0 / ratio)
+                preds._image_size = orig_hw
+            if self.post_process_flag:
+                preds = self.post_processor(preds)
+            return preds
+
     def __call__(self, original_image: np.ndarray) -> Instances:
         rid = self.calls
         self.calls += 1
         with trace.span("glass.resize", rid):
             original_image = self._to_bgr(original_image)
-            image_height, image_width = original_image.shape[:2]
-            scale_ratio = self.get_inference_scale_ratio(original_image.shape)
-            if scale_ratio != 1:
-                new_h = int(np.round(scale_ratio * image_height))
-                new_w = int(np.round(scale_ratio * image_width))
-                image = cv2.resize(
-                    original_image.astype(np.float32), (new_w, new_h), interpolation=cv2.INTER_LINEAR
-                )
-            else:
-                image = original_image.astype(np.float32)
-
+            image, ratio = self._resize_demo(original_image)
         preds = self.run_on_resized(image, rid)
-        with trace.span("glass.post", rid):
-            trace.count("glass.post.words", len(preds))
-            preds = self._model_postprocess(preds, image.shape[0], image.shape[1])
-            if scale_ratio != 1 and len(preds):
-                preds.pred_boxes = scale_rotated_np(
-                    np.asarray(preds.pred_boxes), 1.0 / scale_ratio, 1.0 / scale_ratio
-                )
-            preds._image_size = (image_height, image_width)
-            logger.info("Detected %d raw word instances", len(preds))
-            if self.post_process_flag:
-                preds = self.post_processor(preds)
-                logger.info("Post-processing output is %d word instances", len(preds))
-        return preds
+        return self._post_one(preds, rid, image.shape[:2], original_image.shape[:2], ratio)
 
     def eval_call(self, original_image: np.ndarray) -> Instances:
         """Dataset-evaluation path: d2 ``ResizeShortestEdge`` (MIN/MAX_SIZE_TEST)
@@ -542,16 +546,9 @@ class GlassRunner:
         self.calls += 1
         with trace.span("glass.resize", rid):
             original_image = self._to_bgr(original_image)
-            oh, ow = original_image.shape[:2]
-            nh, nw = shortest_edge_size(oh, ow, self.min_target_size, self.max_target_size)
-            resized = cv2.resize(original_image.astype(np.float32), (nw, nh))
+            resized = self._resize_shortest_edge(original_image)
         preds = self.run_on_resized(resized, rid)
-        with trace.span("glass.post", rid):
-            trace.count("glass.post.words", len(preds))
-            preds = self._model_postprocess(preds, oh, ow)
-            if self.post_process_flag:
-                preds = self.post_processor(preds)
-        return preds
+        return self._post_one(preds, rid, resized.shape[:2], original_image.shape[:2])
 
     def eval_batch_call(self, original_images: List[np.ndarray], batch_size: int = 8) -> List[Instances]:
         """Batched ``eval_call``: shortest-edge resize, the batched model,
@@ -561,100 +558,64 @@ class GlassRunner:
         it so (d2's eval mapper resizes uint8); the model normalizes on the
         device.  TPU.ASYNC_FETCH pipelines the batches: a worker thread runs
         each batch's model and fetch (both wait on the device) while this
-        thread post-processes the batch before, at most two batches ahead.
-        TPU.POSTPROCESS_WORKERS spreads a batch's post-processing over a
-        thread pool.  Every setting gives the same predictions."""
+        thread post-processes the batch before, at most two batches ahead;
+        without it the batches run in turn on this thread, as in
+        ``batch_call``.  Every setting gives the same predictions."""
         u8 = bool(self.cfg.TPU.EVAL_UINT8_TRANSFER)
         prepped = []
         for rid, img in enumerate(original_images):
             with trace.span("glass.resize", rid):
                 img = self._to_bgr(img)
-                oh, ow = img.shape[:2]
-                nh, nw = shortest_edge_size(oh, ow, self.min_target_size, self.max_target_size)
-                if not u8 or img.dtype != np.uint8:
-                    img = img.astype(np.float32)
-                prepped.append((cv2.resize(img, (nw, nh)), (oh, ow)))
+                prepped.append((self._resize_shortest_edge(img, u8), img.shape[:2], None))
+        return self._serve_batches(prepped, batch_size, pipeline=bool(self.cfg.TPU.ASYNC_FETCH))
 
+    def batch_call(self, original_images: List[np.ndarray], batch_size: int = 8) -> List[Instances]:
+        """Full-pipeline batched inference: per-image demo scale rule,
+        grouped batched model calls in turn, per-image post-processing."""
+        prepped = []
+        for rid, img in enumerate(original_images):
+            with trace.span("glass.resize", rid):
+                img = self._to_bgr(img)
+                resized, ratio = self._resize_demo(img)
+                prepped.append((resized, img.shape[:2], ratio))
+        return self._serve_batches(prepped, batch_size, pipeline=False)
+
+    def _serve_batches(self, prepped, batch_size: int, pipeline: bool) -> List[Instances]:
+        """The batched path of ``prepped`` ((resized image, original size,
+        ratio or None) an image): the images grouped by bucket into batches
+        of ``batch_size``, each batch's model and fetch, then its images'
+        host stage, over a pool of TPU.POSTPROCESS_WORKERS threads when
+        that is above 1.  ``pipeline`` runs the batches through
+        ``pipelined`` (when there are two or more), else in turn."""
         results: List[Optional[Instances]] = [None] * len(prepped)
-        order = sorted(
-            range(len(prepped)), key=lambda i: self._pick_bucket(*prepped[i][0].shape[:2])
-        )
+        order = sorted(range(len(prepped)), key=lambda i: self._pick_bucket(*prepped[i][0].shape[:2]))
         chunks = [order[s : s + batch_size] for s in range(0, len(order), batch_size)]
-        if bool(getattr(self.cfg.TPU, "ASYNC_FETCH", True)) and len(chunks) > 1:
-            pipelined(chunks, lambda idxs: self.run_batch_on_resized([prepped[i][0] for i in idxs], idxs[0]),
-                      lambda idxs, preds: self._postprocess_chunk(idxs, preds, prepped, results),
-                      rid_of=lambda idxs: idxs[0])
-            return results
-        inflight = None
-        for idxs in chunks:
-            dispatched = self.dispatch_batch([prepped[i][0] for i in idxs], idxs[0])
-            if inflight is not None:
-                self._finish_eval_chunk(inflight, prepped, results)
-            inflight = (idxs, dispatched)
-        if inflight is not None:
-            self._finish_eval_chunk(inflight, prepped, results)
-        return results
 
-    def _finish_eval_chunk(self, inflight, prepped, results) -> None:
-        idxs, dispatched = inflight
-        self._postprocess_chunk(idxs, self.collect_batch(dispatched, idxs[0]), prepped, results)
+        def produce(idxs):
+            return self.run_batch_on_resized([prepped[i][0] for i in idxs], idxs[0])
+
+        def consume(idxs, preds):
+            self._postprocess_chunk(idxs, preds, prepped, results)
+
+        if pipeline and len(chunks) > 1:
+            pipelined(chunks, produce, consume, rid_of=lambda idxs: idxs[0])
+        else:
+            for idxs in chunks:
+                consume(idxs, produce(idxs))
+        return results
 
     def _postprocess_chunk(self, idxs, preds, prepped, results) -> None:
         def one(i, pr):
-            with trace.span("glass.post", i):
-                trace.count("glass.post.words", len(pr))
-                oh, ow = prepped[i][1]
-                pr = self._model_postprocess(pr, oh, ow)
-                if self.post_process_flag:
-                    pr = self.post_processor(pr)
-                results[i] = pr
+            resized, orig_hw, ratio = prepped[i]
+            results[i] = self._post_one(pr, i, resized.shape[:2], orig_hw, ratio)
 
-        workers = int(getattr(self.cfg.TPU, "POSTPROCESS_WORKERS", 0) or 0)
+        workers = int(self.cfg.TPU.POSTPROCESS_WORKERS)
         if workers > 1 and len(idxs) > 1:
             with ThreadPoolExecutor(min(workers, len(idxs))) as ex:
                 list(ex.map(lambda t: one(*t), zip(idxs, preds)))
         else:
             for i, pr in zip(idxs, preds):
                 one(i, pr)
-
-    def batch_call(self, original_images: List[np.ndarray], batch_size: int = 8) -> List[Instances]:
-        """Full-pipeline batched inference: per-image resize rules, grouped
-        batched model calls, per-image post-processing."""
-        prepped = []
-        for rid, img in enumerate(original_images):
-            with trace.span("glass.resize", rid):
-                img = self._to_bgr(img)
-                scale = self.get_inference_scale_ratio(img.shape)
-                if scale != 1:
-                    nh = int(np.round(scale * img.shape[0]))
-                    nw = int(np.round(scale * img.shape[1]))
-                    resized = cv2.resize(img.astype(np.float32), (nw, nh))
-                else:
-                    resized = img.astype(np.float32)
-                prepped.append((resized, scale, img.shape[:2]))
-
-        results: List[Optional[Instances]] = [None] * len(prepped)
-        # Group by bucket so each batch shares one padded shape.
-        order = sorted(
-            range(len(prepped)), key=lambda i: self._pick_bucket(*prepped[i][0].shape[:2])
-        )
-        for start in range(0, len(order), batch_size):
-            idxs = order[start : start + batch_size]
-            preds = self.run_batch_on_resized([prepped[i][0] for i in idxs], idxs[0])
-            for i, pr in zip(idxs, preds):
-                with trace.span("glass.post", i):
-                    trace.count("glass.post.words", len(pr))
-                    resized, scale, (oh, ow) = prepped[i]
-                    pr = self._model_postprocess(pr, resized.shape[0], resized.shape[1])
-                    if scale != 1 and len(pr):
-                        pr.pred_boxes = scale_rotated_np(
-                            np.asarray(pr.pred_boxes), 1.0 / scale, 1.0 / scale
-                        )
-                    pr._image_size = (oh, ow)
-                    if self.post_process_flag:
-                        pr = self.post_processor(pr)
-                    results[i] = pr
-        return results
 
     def forward_with_given_boxes(self, image: np.ndarray, instances: Instances) -> Instances:
         """The recognizer (and mask head) on boxes given in ``image``'s frame
@@ -664,13 +625,7 @@ class GlassRunner:
         (0, 0, 1, 1, 0), the backbone, then the heads with class 0.  Returns
         those instances with their text and mask fields, and ``pred_rboxes``
         in the frame they were given in."""
-        scale_ratio = self.get_inference_scale_ratio(image.shape)
-        if scale_ratio != 1:
-            nh = int(np.round(scale_ratio * image.shape[0]))
-            nw = int(np.round(scale_ratio * image.shape[1]))
-            resized = cv2.resize(image.astype(np.float32), (nw, nh))
-        else:
-            resized = image.astype(np.float32)
+        resized, scale_ratio = self._resize_demo(image)
         h, w = resized.shape[:2]
         bh, bw = self._pick_bucket(h, w)
         padded = np.zeros((bh, bw, 3), np.float32)

@@ -33,8 +33,8 @@ Trainer's chunk of ``TPU.TRAIN_LOOP_STEPS``: a host loop over the step that
 keeps the metrics on the device until it ends.  The step's own host syncs
 (NMS fixpoints, the matcher's ``nonzero``) stay, so the chunk is not yet
 one CUDA graph.  ``make_parallel_train_loop`` is glass_tpu's n steps on one
-batch, the loop of the measurement tools (``tools/train_bench.py``,
-``tools/train_mfu_breakdown.py``): a host loop too, not a CUDA graph.
+batch, the loop of glass_tpu's ``tools/train_bench.py`` and of the
+benchmark's training cell: a host loop too, not a CUDA graph.
 """
 
 from __future__ import annotations

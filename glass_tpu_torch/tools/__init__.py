@@ -1,3 +1,3 @@
-"""The port's measurement tools, each the counterpart of a glass_tpu script
-under ``tools/`` (run as ``python -m glass_tpu_torch.tools.<name>``; the
-product number is ``python -m glass_tpu_torch.bench``)."""
+"""The port's released-checkpoint check, the counterpart of glass_tpu's
+``tools/verify_released_checkpoint.py`` (run as
+``python -m glass_tpu_torch.tools.verify_released_checkpoint``)."""

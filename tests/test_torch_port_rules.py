@@ -105,13 +105,9 @@ def test_runner_refuses_cuda_without_a_gpu(monkeypatch):
 
 
 def test_the_scans_cover_the_measurement_entry_points():
-    """The AST scan and the fresh-interpreter import above reach
-    ``glass_tpu_torch.bench`` and every ``glass_tpu_torch.tools`` module,
-    ``verify_released_checkpoint`` among them."""
+    """The AST scan and the fresh-interpreter import above reach the one
+    ``glass_tpu_torch.tools`` module, ``verify_released_checkpoint``."""
     tools = sorted(n[:-3] for n in os.listdir(os.path.join(PACKAGE, "tools")) if n.endswith(".py"))
-    assert {"common", "e2e_breakdown", "train_bench", "sustained_eval", "profile_breakdown", "mfu_breakdown",
-            "train_mfu_breakdown", "backbone_bwd_breakdown", "serve_ab", "verify_released_checkpoint"} <= set(tools)
-    want = {"glass_tpu_torch.bench"} | {f"glass_tpu_torch.tools.{n}" for n in tools if n != "__init__"}
-    assert want <= set(_submodules())
-    files = set(_port_files())
-    assert {os.path.join(PACKAGE, "bench.py")} | {os.path.join(PACKAGE, "tools", f"{n}.py") for n in tools} <= files
+    assert tools == ["__init__", "verify_released_checkpoint"]
+    assert "glass_tpu_torch.tools.verify_released_checkpoint" in set(_submodules())
+    assert os.path.join(PACKAGE, "tools", "verify_released_checkpoint.py") in set(_port_files())
