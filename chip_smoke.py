@@ -214,9 +214,12 @@ Phases:
      device time from a CUDA graph of 50 launches beside its byte bound
      (masks and table read, the windows, flags and boxes written, at 3.35
      TB/s),
-     and the polygon step's time through the paster and through the host
-     loop; the knife-edge fallback share over every image.  Every phase
-     prints its seconds.
+     and the polygon step's time through the paster (with the native
+     contour tracer, and with cv2 tracing K3's windows) and through the host
+     loop; the knife-edge fallback share over every image; the words the
+     tracer and cv2 traced (on the card's host the probe must admit the
+     tracer: cv2 traces none of K3's words).  Every phase prints its
+     seconds.
 
 Prints, on the last two lines, a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``, and copies everything it prints into
@@ -4352,6 +4355,8 @@ def phase_k3(images, state_dict, n_images=4, device="cuda", opts=()):
     """Phase 16: K3 on the word sets of serving images (see the module's
     docstring).  On the CPU (a rehearsal) the paster runs K3's plain
     version and the card's launches and times are skipped."""
+    import cv2
+
     from glass_tpu_torch.inference import GlassRunner
     from glass_tpu_torch.ops import _cuda
     from glass_tpu_torch.ops import paste_masks_rotated as k3
@@ -4378,26 +4383,42 @@ def phase_k3(images, state_dict, n_images=4, device="cuda", opts=()):
     counts = trace.totals()
     launches = _cuda.LAUNCHES[k3.KERNEL]
     form = paste.host_form()
+    native_words = counts.get("glass.post.polygons.native_words", 0)
+    cv2_words = counts.get("glass.post.polygons.cv2_words", 0)
     log(f"K3: host cv2 form {form} ({'float' if form == k3.FORM_FLOAT else 'fixed'}); "
         f"{launches} launches over {n_images} images; words on the card "
         f"{counts.get('glass.post.polygons.device_words', 0)}, re-warped on the host "
-        f"{counts.get('glass.post.polygons.fallback_words', 0)}")
+        f"{counts.get('glass.post.polygons.fallback_words', 0)}; contours: native tracer "
+        f"{'admitted' if paste.native_contours() is not None else 'refused'} (cv2 {cv2.__version__}), "
+        f"words traced natively {native_words}, by cv2 {cv2_words}")
     if cuda and launches != n_images:
         raise AssertionError(f"K3: {launches} launches over {n_images} images, expected one an image")
-    step_ms, loop_ms = [], []
+    if cuda and (cv2_words or not native_words):
+        raise AssertionError(f"K3: cv2 traced {cv2_words} words and the native tracer {native_words}; "
+                             "the probe must admit the tracer on the card's host")
+    step_ms, cv2_step_ms, loop_ms = [], [], []
     for masks, boxes, shape, thr in seen:
         t0 = time.perf_counter()
         got = paster(masks, boxes, shape, thr)
         t1 = time.perf_counter()
         want = paste.rotated_masks_to_polygons(masks, boxes, shape, thr)
         t2 = time.perf_counter()
+        tracer, paste.native_contours = paste.native_contours, lambda: None
+        try:
+            by_cv2 = paster(masks, boxes, shape, thr)
+        finally:
+            paste.native_contours = tracer
+        t3 = time.perf_counter()
         step_ms.append((t1 - t0) * 1e3)
         loop_ms.append((t2 - t1) * 1e3)
-        for i, (a, b) in enumerate(zip(got, want)):
-            if (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)):
-                raise AssertionError(f"K3: word {i}'s polygon differs from the host loop's")
+        cv2_step_ms.append((t3 - t2) * 1e3)
+        for i, (a, b, c) in enumerate(zip(got, want, by_cv2)):
+            for x in (a, c):
+                if (x is None) != (b is None) or (x is not None and not np.array_equal(x, b)):
+                    raise AssertionError(f"K3: word {i}'s polygon differs from the host loop's")
     log(f"K3: polygons equal the host loop's on {len(seen)} images ({sum(len(s[0]) for s in seen)} words); "
-        f"polygon step through the paster {', '.join(f'{v:.1f}' for v in step_ms)} ms, host loop "
+        f"polygon step through the paster {', '.join(f'{v:.1f}' for v in step_ms)} ms, the paster with cv2's "
+        f"contours {', '.join(f'{v:.1f}' for v in cv2_step_ms)} ms, host loop "
         f"{', '.join(f'{v:.1f}' for v in loop_ms)} ms")
     words = counts.get("glass.post.polygons.device_words", 0)
     fallback = counts.get("glass.post.polygons.fallback_words", 0)
@@ -4444,7 +4465,7 @@ def phase_k3(images, state_dict, n_images=4, device="cuda", opts=()):
     if err:
         raise AssertionError(f"K3: {err} bytes, flags or box numbers differ from the plain version")
     return dict(rows=[r for r in rows if r["form"] == form], launches=launches, n_images=n_images,
-                step_ms=step_ms, loop_ms=loop_ms)
+                step_ms=step_ms, cv2_step_ms=cv2_step_ms, loop_ms=loop_ms)
 
 
 def kernel_entry(name, source, replaces, launches, rows):

@@ -1,16 +1,18 @@
-"""Compile-and-load for the native polygon library.
+"""Compile-and-load for the native polygon libraries.
 
-``polyclip.cpp`` is compiled with ``g++`` at first use into
-``glass_tpu_torch/_build/`` (or ``$GLASS_TPU_TORCH_BUILD_DIR``), never beside
-the source, under a name keyed by a hash of the source and the flags, and
-loaded with ``ctypes`` (whose calls release the interpreter lock).  It
-serves the evaluator's polygon IoUs and the post-processor's rotated-box
-IoU (``postprocess/np_geometry.py``), which the post-processor loads when
-it is built.  ``-ffp-contract=off`` keeps the compiler from fusing a
-multiply and an add that numpy rounds apart, so the rotated IoU equals the
-numpy clip bit for bit on any host.  When the build or the load fails, both
-take their numpy or Python path and a warning says so; ``polyclip_path()``
-names the path that ran.
+``polyclip.cpp`` and ``contours.cpp`` are compiled with ``g++`` at first use
+into ``glass_tpu_torch/_build/`` (or ``$GLASS_TPU_TORCH_BUILD_DIR``), never
+beside the source, under a name keyed by a hash of the source and the flags,
+and loaded with ``ctypes`` (whose calls release the interpreter lock).
+``polyclip`` serves the evaluator's polygon IoUs and the post-processor's
+rotated-box IoU (``postprocess/np_geometry.py``), which the post-processor
+loads when it is built.  ``-ffp-contract=off`` keeps the compiler from
+fusing a multiply and an add that numpy rounds apart, so the rotated IoU
+equals the numpy clip bit for bit on any host.  ``contours`` traces the
+mask polygons' largest contours (``postprocess/paste.py``), which the mask
+paster loads when it is built.  When a build or a load fails, the callers
+take their numpy, Python or cv2 path and a warning says so;
+``polyclip_path()`` names the polygon path that ran.
 """
 
 from __future__ import annotations
@@ -28,10 +30,12 @@ logger = logging.getLogger(__name__)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "polyclip.cpp")
+_CONTOURS_SRC = os.path.join(_HERE, "contours.cpp")
 GXX_FLAGS = ("-O3", "-ffp-contract=off", "-shared", "-fPIC")
 _lock = threading.Lock()
 _lib = None
 _path = None  # "native" or "python" once load_polyclip has run
+_contours = None  # [library or None] once load_contours has run
 
 
 def build_dir() -> str:
@@ -40,11 +44,12 @@ def build_dir() -> str:
     )
 
 
-def library_path() -> str:
+def library_path(src: str = _SRC) -> str:
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    with open(_SRC, "rb") as f:
+    with open(src, "rb") as f:
         h.update(f.read())
-    return os.path.join(build_dir(), f"libpolyclip-{h.hexdigest()[:16]}.so")
+    name = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(build_dir(), f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 class PolyClip:
@@ -138,12 +143,56 @@ class PolyClip:
         return out, overflow[:k]
 
 
-def _build(out: str) -> None:
+class Contours:
+    """``contours.cpp``: the largest external contour of each binary window
+    of a buffer, as ``cv2.findContours`` and ``max(..., key=cv2.contourArea)``
+    give it."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._fn = lib.contours_largest
+        self._fn.restype = ctypes.c_int64
+        self._fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64,
+                                                     ctypes.c_void_p]
+
+    def largest(self, base: np.ndarray, geo: np.ndarray, fg: np.ndarray, skip, points: np.ndarray,
+                counts: np.ndarray) -> int:
+        """Windows ``geo[j] = (offset, width, height)`` in the uint8 buffer
+        ``base``, each zero outside its foreground box ``fg[j] = (x0, y0, x1,
+        y1)`` (``x1 < 0``: none), skipped where ``skip[j]`` (int32, or None)
+        is set.  Writes ``counts[j]`` (int32), the points of window j's
+        largest contour (0 for none, for fewer than 3 points and for a
+        skipped window), and the points, int32 ``(x, y)`` in the foreground
+        box, window after window into ``points`` ((capacity, 2) int32) while
+        they fit; a window that does not fit reads -1.  Returns the points
+        all windows need: more than the capacity means call again with a
+        larger ``points``."""
+        n = len(geo)
+        for a, dtype, shape in ((geo, np.int64, (n, 3)), (fg, np.int32, (n, 4)),
+                                (points, np.int32, (len(points), 2)), (counts, np.int32, (n,))):
+            if a.dtype != dtype or a.shape != shape or not a.flags.c_contiguous:
+                raise ValueError(f"{a.dtype} {a.shape} array where {np.dtype(dtype)} {shape} is needed")
+        if base.dtype != np.uint8 or not base.flags.c_contiguous:
+            raise ValueError("the windows must be a contiguous uint8 buffer")
+        if skip is not None and (skip.dtype != np.int32 or skip.shape != (n,) or not skip.flags.c_contiguous):
+            raise ValueError(f"skip flags {skip.dtype} {skip.shape}")
+        off, w, h = geo.T
+        if ((off < 0) | (w < 0) | (h < 0) | (off + w * h > base.size)).any():
+            raise ValueError("a window lies outside the buffer")
+        x0, y0, x1, y1 = fg.T
+        box = x1 >= 0
+        if ((x0 < 0) | (y0 < 0) | (x0 > x1) | (y0 > y1) | (x1 >= w) | (y1 >= h))[box].any():
+            raise ValueError("a foreground box lies outside its window")
+        return self._fn(base.ctypes.data, geo.ctypes.data, fg.ctypes.data,
+                        None if skip is None else skip.ctypes.data, n, points.ctypes.data,
+                        len(points), counts.ctypes.data)
+
+
+def _build(out: str, src: str = _SRC) -> None:
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, _SRC], check=True, capture_output=True)
+    subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, src], check=True, capture_output=True)
     os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
-    logger.info("built native polyclip: %s", out)
+    logger.info("built native library: %s", out)
 
 
 def load_polyclip():
@@ -162,6 +211,22 @@ def load_polyclip():
             logger.warning("native polyclip unavailable (%s); using the python path", e)
             _lib, _path = None, "python"
         return _lib
+
+
+def load_contours():
+    """Build (if needed) and load the contour tracer; None on failure."""
+    global _contours
+    with _lock:
+        if _contours is None:
+            try:
+                out = library_path(_CONTOURS_SRC)
+                if not os.path.exists(out):
+                    _build(out, _CONTOURS_SRC)
+                _contours = [Contours(ctypes.CDLL(out))]
+            except (OSError, subprocess.CalledProcessError) as e:  # no g++, or it failed
+                logger.warning("native contour tracer unavailable (%s); using cv2", e)
+                _contours = [None]
+        return _contours[0]
 
 
 def polyclip_path() -> str:

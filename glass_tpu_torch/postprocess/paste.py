@@ -10,7 +10,10 @@ cv2 on the host, word by word.  ``RotatedMaskPaster`` gives the same
 polygons with the warp and threshold of every word of an image in one
 launch of kernel K3 (``ops/paste_masks_rotated.py``): the host builds the
 word table at once (``word_windows``), the kernel writes the binary windows
-into pinned host memory, and the host follows their contours in place."""
+into pinned host memory, and one call of the native contour tracer
+(``native/contours.cpp``) follows every word's largest contour in place,
+outside the interpreter lock.  ``native_contours`` admits the tracer only
+where it equals this host's cv2 on a fixed set of windows."""
 
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import cv2
 import numpy as np
 import torch
 
+from ..native import load_contours
 from ..ops import paste_masks_rotated as k3
 from ..utils import trace
 
@@ -222,6 +226,97 @@ def host_form():
     return None
 
 
+def _probe_windows():
+    """A fixed set of binary windows on which a contour tracer that is not
+    cv2's, point for point, shows it: seeded noise at several thresholds
+    and smoothness, a ring with components nested in its hole, lines one
+    pixel wide (straight and diagonal), single pixels, full and empty
+    windows, components on every edge, and ties of equal areas."""
+    rng = np.random.default_rng(20261)
+    wins = []
+    for thr in (0.1, 0.3, 0.5, 0.7, 0.9):
+        for h, w in ((1, 1), (1, 13), (9, 1), (7, 9), (33, 17), (40, 71)):
+            wins.append(rng.random((h, w)) >= thr)
+            small = rng.random((6, 7)).astype(np.float32)
+            wins.append(cv2.resize(small, (w, h), interpolation=cv2.INTER_LINEAR) >= thr)
+    ring = np.zeros((24, 30), bool)
+    ring[2:22, 2:28] = True
+    ring[5:19, 5:25] = False
+    ring[8:16, 8:14] = True  # a component in the hole, itself with a hole
+    ring[10:14, 10:12] = False
+    ring[11, 11] = True
+    ring[9:11, 17:22] = True
+    wins.append(ring)
+    lines = np.zeros((16, 16), bool)
+    lines[2, 1:9] = lines[4:12, 12] = True
+    lines[np.arange(5, 15), np.arange(0, 10)] = True
+    lines[np.arange(14, 8, -1), np.arange(9, 15)] = True
+    wins += [lines, np.eye(7, dtype=bool), np.eye(7, dtype=bool)[::-1]]
+    dots = np.zeros((9, 11), bool)
+    dots[1::3, 2::4] = True
+    wins += [dots, np.ones((5, 7), bool), np.ones((1, 1), bool), np.zeros((4, 6), bool)]
+    edges = np.zeros((10, 12), bool)
+    edges[0, 3:6] = edges[9, 0:2] = edges[4:7, 0] = edges[2:8, 11] = edges[9, 11] = True
+    wins.append(edges)
+    ties = np.zeros((12, 20), bool)
+    ties[1:4, 1:4] = ties[6:9, 12:15] = ties[1:4, 15:18] = True  # three equal squares
+    wins.append(ties)
+    flat = np.zeros((8, 12), bool)  # every contour of area 0: lines and an L
+    flat[1, 1:5] = flat[3:6, 8] = flat[6, 2:4] = True
+    flat[5, 2] = True
+    wins.append(flat)
+    return [w.astype(np.uint8) for w in wins]
+
+
+def _trace_windows(tracer, windows, origins=None):
+    """The tracer over a list of separate uint8 windows -> each window's
+    largest contour as (K, 2) float64, shifted by its origin, or None."""
+    if not windows:
+        return []
+    sizes = np.array([w.size for w in windows], np.int64)
+    geo = np.stack([np.cumsum(sizes) - sizes, [w.shape[1] for w in windows],
+                    [w.shape[0] for w in windows]], 1).astype(np.int64)
+    fg = np.zeros((len(windows), 4), np.int32)
+    fg[:, 2] = np.where(sizes > 0, geo[:, 1] - 1, -1)
+    fg[:, 3] = geo[:, 2] - 1
+    base = np.concatenate([np.ascontiguousarray(w, np.uint8).ravel() for w in windows])
+    counts = np.zeros(len(windows), np.int32)
+    points = np.zeros((max(int(sizes.sum()), 16), 2), np.int32)
+    need = tracer.largest(base, geo, fg, None, points, counts)
+    if need > len(points):
+        points = np.zeros((need, 2), np.int32)
+        tracer.largest(base, geo, fg, None, points, counts)
+    return _split(points, counts, np.zeros((len(windows), 2), np.int64) if origins is None else origins)
+
+
+def _split(points, counts, origins):
+    """The tracer's packed points -> a (K, 2) float64 polygon a word, shifted
+    by its origin, or None where it found none."""
+    found = counts > 0
+    total = int(counts[found].sum())
+    pts = points[:total].astype(np.float64)
+    pts += np.repeat(origins[found], counts[found], axis=0)
+    polys = iter(np.split(pts, np.cumsum(counts[found])[:-1]))
+    return [next(polys) if f else None for f in found]
+
+
+@functools.lru_cache(maxsize=None)
+def native_contours():
+    """The native contour tracer where it gives this host's cv2's largest
+    contours point for point on the probe windows, else None: then cv2
+    traces every word."""
+    tracer = load_contours()
+    if tracer is None:
+        return None
+    wins = _probe_windows()
+    got = _trace_windows(tracer, wins)
+    for g, w in zip(got, wins):
+        want = _largest_contour(w, 0, 0)
+        if (g is None) != (want is None) or (g is not None and not np.array_equal(g, want)):
+            return None
+    return tracer
+
+
 def _round16(n):
     return (n + 15) // 16 * 16
 
@@ -233,7 +328,8 @@ def _pow2(n: int) -> int:
 class _Slot:
     """The buffers of one launch at a time: the inputs staged in pinned
     memory and their copy on the card, the pinned windows and flags the
-    kernel writes, and a stream and an event of the paster's own."""
+    kernel writes, the contour tracer's points and counts, and a stream
+    and an event of the paster's own."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -241,6 +337,8 @@ class _Slot:
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         self.event = torch.cuda.Event() if self.cuda else None
         self.stage = self.dev = self.out = self.flags = self.fg = None
+        self.points = np.zeros((1 << 18, 2), np.int32)
+        self.counts = np.zeros(256, np.int32)
 
     def reserve(self, in_bytes: int, out_bytes: int, n: int) -> None:
         if self.stage is None or self.stage.numel() < in_bytes:
@@ -256,6 +354,7 @@ class _Slot:
         if self.flags is None or self.flags.numel() < n:
             self.flags = torch.empty(_pow2(max(n, 256)), dtype=torch.int32, pin_memory=self.cuda)
             self.fg = torch.empty((self.flags.numel(), 4), dtype=torch.int32, pin_memory=self.cuda)
+            self.counts = np.zeros(self.flags.numel(), np.int32)
 
 
 class RotatedMaskPaster:
@@ -266,14 +365,17 @@ class RotatedMaskPaster:
     the tile table, 16-byte aligned window offsets); one copy of the masks
     and table to the card and K3 on a stream of the paster's own (the
     default stream may be queued behind another thread's model program);
-    a wait on an event; then ``cv2.findContours`` over views of the pinned
-    windows, each cut to the foreground box K3 returns with it (the same
-    contours, shifted).  A word K3 flags on the knife edge, or whose coordinates are
-    out of its range, is warped by cv2 as in the loop.  Where this host's
-    cv2 warps in neither of K3's forms (``host_form``), every word is.
-    Threads post-processing at once each take a slot of buffers of their
-    own.  On the CPU (the tests' stand-in for the card) K3's plain version
-    fills the same buffers."""
+    a wait on an event; then one call of the native contour tracer over
+    the pinned windows, each cut to the foreground box K3 returns with it
+    (the same contours, shifted), which leaves each word's largest contour
+    in the slot's points.  A word K3 flags on the knife edge, or whose
+    coordinates are out of its range, is warped by cv2 as in the loop, and
+    traced the same way.  Where this host's cv2 warps in neither of K3's
+    forms (``host_form``), every word is; where the tracer is not cv2's
+    point for point (``native_contours``), cv2 traces every word.  Threads
+    post-processing at once each take a slot of buffers of their own.  On
+    the CPU (the tests' stand-in for the card) K3's plain version fills the
+    same buffers."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -281,13 +383,14 @@ class RotatedMaskPaster:
             raise ValueError(f"unsupported device {self.device}")
         self._free: list = []
         self._lock = threading.Lock()
+        native_contours()  # the tracer's build and probe: in set-up, not in a request
 
     def __call__(self, masks: np.ndarray, boxes: np.ndarray, image_shape, threshold: float = 0.5):
         n = len(masks)
+        if n == 0:
+            return []
         form = host_form()
-        if n == 0 or form is None:
-            trace.count("glass.post.polygons.fallback_words", n)
-            return rotated_masks_to_polygons(masks, boxes, image_shape, threshold)
+        tracer = native_contours()
         win, fwd, inv = word_windows(boxes, image_shape, masks.shape[1:])
         x0, y0, x1, y1 = win.T
         w, h = x1 - x0, y1 - y0
@@ -296,7 +399,7 @@ class RotatedMaskPaster:
         for xs, ys in ((0, 0), (w - 1, 0), (0, h - 1), (w - 1, h - 1)):
             reach = np.maximum(reach, np.maximum(np.abs(inv[:, 0] * xs + inv[:, 1] * ys + inv[:, 2]),
                                                  np.abs(inv[:, 3] * xs + inv[:, 4] * ys + inv[:, 5])))
-        on_card = nonempty & np.isfinite(inv).all(1) & (reach < COORD_LIMIT)
+        on_card = nonempty & np.isfinite(inv).all(1) & (reach < COORD_LIMIT) & (form is not None)
         polys = [None] * n
         host = list(np.flatnonzero(nonempty & ~on_card))
         idx = np.flatnonzero(on_card)
@@ -304,18 +407,25 @@ class RotatedMaskPaster:
         start, acc = 0, 0
         for j, size in enumerate(sizes):
             if acc and acc + size > LAUNCH_BYTES:
-                host += self._launch(idx[start:j], masks, win, fwd, inv, form, threshold, polys)
+                host += self._launch(idx[start:j], masks, win, fwd, inv, form, threshold, tracer, polys)
                 start, acc = j, 0
             acc += size
         if len(idx):
-            host += self._launch(idx[start:], masks, win, fwd, inv, form, threshold, polys)
-        for i in host:
-            polys[i] = _largest_contour(_host_window(masks[i], fwd[i], win[i], threshold), *win[i][:2])
+            host += self._launch(idx[start:], masks, win, fwd, inv, form, threshold, tracer, polys)
+        windows = [_host_window(masks[i], fwd[i], win[i], threshold) for i in host]
+        if tracer is not None:
+            for i, poly in zip(host, _trace_windows(tracer, windows, win[host, :2])):
+                polys[i] = poly
+            trace.count("glass.post.polygons.native_words", len(host))
+        else:
+            for i, window in zip(host, windows):
+                polys[i] = _largest_contour(window, *win[i][:2])
+            trace.count("glass.post.polygons.cv2_words", len(host))
         trace.count("glass.post.polygons.device_words", len(idx))
         trace.count("glass.post.polygons.fallback_words", len(host))
         return polys
 
-    def _launch(self, idx, masks, win, fwd, inv, form, threshold, polys):
+    def _launch(self, idx, masks, win, fwd, inv, form, threshold, tracer, polys):
         """K3 over the words ``idx``; their polygons into ``polys``.
         Returns the words it flagged."""
         n, m = len(idx), masks.shape[-1]
@@ -352,23 +462,41 @@ class RotatedMaskPaster:
                 slot.out[:len(plain)] = plain
                 flags[:n], fg[:n] = plain_flags.numpy(), plain_fg.numpy()
             out = slot.out.numpy()
-            flagged = []
+            flagged = list(idx[flags[:n] != 0])
+            if tracer is not None:
+                self._trace(slot, tracer, out, geo, idx, win, polys)
+                trace.count("glass.post.polygons.native_words", n - len(flagged))
+                return flagged
             for j, i in enumerate(idx):
-                if flags[j]:
-                    flagged.append(i)
-                    continue
                 bx0, by0, bx1, by1 = (int(v) for v in fg[j])
-                if bx1 < 0:
-                    continue  # no foreground: no contour, as the loop finds
+                if flags[j] or bx1 < 0:
+                    continue  # re-warped on the host; or no foreground: no contour, as the loop finds
                 off = int(geo[j, 0])
                 window = out[off:off + int(w[j] * h[j])].reshape(int(h[j]), int(w[j]))
                 # the contours of the foreground's box are the window's,
                 # shifted: findContours pads the image with zeros itself
                 polys[i] = _largest_contour(window[by0:by1 + 1, bx0:bx1 + 1], int(x0[j]) + bx0,
                                             int(y0[j]) + by0)
+            trace.count("glass.post.polygons.cv2_words", n - len(flagged))
             return flagged
         finally:
             self._release(slot)
+
+    @staticmethod
+    def _trace(slot, tracer, out, geo, idx, win, polys):
+        """The tracer's one call over a launch's windows (skipping the
+        flagged words); each word's points shifted by its window's origin
+        and its foreground box's corner."""
+        n = len(idx)
+        fg, flags, counts = slot.fg.numpy()[:n], slot.flags.numpy()[:n], slot.counts[:n]
+        geo = np.ascontiguousarray(geo, np.int64)
+        need = tracer.largest(out, geo, fg, flags, slot.points, counts)
+        if need > len(slot.points):
+            slot.points = np.zeros((_pow2(need), 2), np.int32)
+            tracer.largest(out, geo, fg, flags, slot.points, counts)
+        origins = win[idx, :2] + fg[:, :2]
+        for i, poly in zip(idx, _split(slot.points, counts, origins)):
+            polys[i] = poly
 
     def _acquire(self) -> _Slot:
         with self._lock:
