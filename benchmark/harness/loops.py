@@ -198,10 +198,7 @@ def _serving_setup(cell, seed, dev, opts, mix):
 
 
 def _launch_recorder():
-    from glass_tpu_torch.models import glass_rcnn
-    from glass_tpu_torch.ops import crop, roi_align_rotated
-
-    return roofline.Launches(roi_align_rotated, crop, glass_rcnn).install()
+    return roofline.Launches().install()
 
 
 def judge_serving(rcfg, sd_host, dev, path, pool, kept, returned, sample, index_of) -> dict:

@@ -1,6 +1,6 @@
 """The yardstick of the kernels and of the whole step: the card's
-published peaks, and each hand kernel's bytes and operations worked out
-from the shapes and rois of its call, whatever implements it.
+published peaks, the tap arithmetic that the kernels' counts share, and
+each hand kernel's yardstick file.
 
 Peaks: one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at its 700 W
 limit): 3.35 TB/s of HBM, 67 TFLOP/s in float32 outside the tensor cores
@@ -10,27 +10,33 @@ dtype, the basis of MFU).
 A kernel's least time is the larger of its bytes over the bandwidth and
 its operations over the float32 peak; its roofline share is that over its
 measured time.  Bytes count each input byte the call needs read once and
-each output byte written once:
+each output byte written once, from the shapes and rois of its call,
+whatever implements it.
 
-* K1 (rotated RoIAlign forward): the pooled output (R, ph, pw, C), plus the
-  distinct feature rows of C channels that the bilinear taps of in-bounds
-  samples touch; operations: 8 per channel per sample (four taps, a
-  multiply and an add each).
-* K1b (its backward): the upstream gradient read, plus the dense gradient
-  of the packed features (n_rows, C) written once, as the call returns it;
-  operations as K1's.
-* K2 (rotated crops of the image): the crops (B, R, OH, OW, 3) written,
-  plus the distinct pixels of three channels the taps touch; operations as
-  K1's.
+Each hand kernel brings ``benchmark/kernels/<kernel>.py`` (the file's name,
+a Python identifier, is the kernel's name here, in ``Launches.calls`` and
+in a reader's ``reading.launches``), with four parts:
+
+* ``SEAMS``: the (module, attribute) of each program function that launches
+  the kernel, which ``Launches`` wraps;
+* ``record(args, kwargs, out)``: what a call keeps (device copies, no host
+  sync), or None for a call it does not count;
+* ``is_kernel(name)``: whether a device record of the trace is the
+  kernel's own;
+* ``cost(call)``: the (bytes, operations) of a kept call.
 """
 
 from __future__ import annotations
 
+import importlib
 import math
+import os
 
 import torch
 
-from ..reference.glass.ops.roi_align_rotated import adaptive_grid, bilinear_plain, fixed_grid
+from ..reference.glass.ops.roi_align_rotated import bilinear_plain
+
+KERNELS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "kernels")
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -75,112 +81,59 @@ def samples(grid, out_hw) -> int:
     return int((grid[:, 0].long() * grid[:, 1].long()).sum()) * int(out_hw[0]) * int(out_hw[1])
 
 
-def k1_cost(call: dict):
-    """(bytes, operations) of one K1 call."""
-    c, elt = call["channels"], call["elt"]
-    out = call["rois"].shape[0] * call["out_hw"][0] * call["out_hw"][1] * c * elt
-    rows = touched_rows(call["meta"], call["rois"], call["levels"], call["grid"], call["out_hw"])
-    return out + rows * c * elt, 8 * c * samples(call["grid"], call["out_hw"])
-
-
-def k1b_cost(call: dict):
-    """(bytes, operations) of one K1b call."""
-    c = call["channels"]
-    grad_in = call["rois"].shape[0] * call["out_hw"][0] * call["out_hw"][1] * c * call["elt"]
-    return grad_in + call["n_rows"] * c * call["out_elt"], 8 * c * samples(call["grid"], call["out_hw"])
-
-
-def k2_cost(call: dict):
-    """(bytes, operations) of one K2 call over a batch."""
-    rois, out_hw = call["rois"], call["out_hw"]
-    b, h, w, _ = call["images_shape"]
-    total_rows = 0
-    ops = 0
-    for i in range(b):
-        r = rois[i].float()
-        grid = (fixed_grid(r.shape[0], call["sampling_ratio"], r.device) if call["sampling_ratio"] > 0
-                else adaptive_grid(r[:, 3], r[:, 2], out_hw, call["max_sampling_ratio"]))
-        meta = torch.tensor([[1.0, float(h), float(w), 0.0]], device=r.device)
-        levels = torch.zeros((r.shape[0],), dtype=torch.int32, device=r.device)
-        total_rows += touched_rows(meta, r, levels, grid, out_hw)
-        ops += 8 * 3 * samples(grid, out_hw)
-    out = rois.shape[0] * rois.shape[1] * out_hw[0] * out_hw[1] * 3 * call["out_elt"]
-    return out + total_rows * 3 * call["image_elt"], ops
-
-
-COSTS = {"k1": k1_cost, "k1b": k1b_cost, "k2": k2_cost}
-NAMES = {"k1": lambda n: "roi_align_rotated_kernel" in n,
-         "k1b": lambda n: "k1b::" in n,
-         "k2": lambda n: "crop_rois_kernel" in n}
-
-
 def least_s(cost) -> float:
     nbytes, ops = cost
     return max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S)
+
+
+def kernels() -> dict:
+    """Every yardstick file of ``benchmark/kernels/`` by its kernel's name."""
+    package = __package__.rsplit(".", 1)[0] + ".kernels"
+    return {f[:-3]: importlib.import_module(f"{package}.{f[:-3]}")
+            for f in sorted(os.listdir(KERNELS_DIR)) if f.endswith(".py") and not f.startswith("_")}
 
 
 def share(calls: list, kind: str, trace) -> "float | None":
     """The kernel's roofline share over the traced window: the least time
     of its calls over the device time of its records; None when the window
     ran none."""
-    secs = sum(t for _, t in trace.kernels(NAMES[kind]))
+    kernel = kernels()[kind]
+    secs = sum(t for _, t in trace.kernels(kernel.is_kernel))
     if not calls or secs <= 0:
         return None
-    return 100.0 * sum(least_s(COSTS[kind](c)) for c in calls) / secs
+    return 100.0 * sum(least_s(kernel.cost(c)) for c in calls) / secs
 
 
 class Launches:
-    """Records the shapes and rois of every K1, K1b and K2 call while
-    ``on`` (device copies, no host sync), by wrapping the program's
-    launch sites."""
+    """Records every call of each kernel of ``kernels()`` while ``on``, as
+    its file's ``record`` keeps it, by wrapping the program functions its
+    ``SEAMS`` name."""
 
-    def __init__(self, rar_module, crop_module, glass_rcnn_module):
-        self.mods = (rar_module, crop_module, glass_rcnn_module)
+    def __init__(self):
         self.on = False
-        self.calls = {"k1": [], "k1b": [], "k2": []}
+        self.calls = {name: [] for name in kernels()}
+        self.orig = []
 
     def install(self):
-        rar, crop, rcnn = self.mods
-        self.orig = (rar._pool_forward, rar.roi_align_rotated_packed_backward, crop.crop_rois_batched,
-                     getattr(rcnn, "crop_rois_batched", None))
-
-        def pool_forward(flat, meta, rois, levels, grid, output_size):
-            if self.on and flat.is_cuda:
-                self.calls["k1"].append({"meta": meta.detach().clone(), "rois": rois.detach().float().clone(),
-                                         "levels": levels.clone(), "grid": grid.clone(),
-                                         "out_hw": tuple(int(v) for v in output_size),
-                                         "channels": flat.shape[1], "elt": flat.element_size()})
-            return self.orig[0](flat, meta, rois, levels, grid, output_size)
-
-        def pool_backward(grad_out, meta, rois, levels, grid, n_rows, out_dtype=torch.float32, **kw):
-            if self.on and grad_out.is_cuda:
-                self.calls["k1b"].append({"rois": rois.detach().clone(), "grid": grid.clone(),
-                                          "out_hw": tuple(grad_out.shape[1:3]), "channels": grad_out.shape[-1],
-                                          "elt": grad_out.element_size(), "n_rows": int(n_rows),
-                                          "out_elt": torch.empty((), dtype=out_dtype).element_size()})
-            return self.orig[1](grad_out, meta, rois, levels, grid, n_rows, out_dtype=out_dtype, **kw)
-
-        def crop_batched(images, rois, out_hw=(128, 128), sampling_ratio=1, max_sampling_ratio=2,
-                         normalize=None):
-            out = self.orig[2](images, rois, out_hw, sampling_ratio, max_sampling_ratio, normalize)
-            if self.on and images.is_cuda:
-                self.calls["k2"].append({"images_shape": tuple(images.shape),
-                                         "image_elt": images.element_size(), "rois": rois.detach().clone(),
-                                         "out_hw": tuple(int(v) for v in out_hw),
-                                         "sampling_ratio": int(sampling_ratio),
-                                         "max_sampling_ratio": max_sampling_ratio,
-                                         "out_elt": out.element_size()})
-            return out
-
-        rar._pool_forward = pool_forward
-        rar.roi_align_rotated_packed_backward = pool_backward
-        crop.crop_rois_batched = crop_batched
-        if self.orig[3] is not None:
-            rcnn.crop_rois_batched = crop_batched
+        for name, kernel in kernels().items():
+            for where, attr in kernel.SEAMS:
+                owner = importlib.import_module(where)
+                fn = getattr(owner, attr)
+                self.orig.append((owner, attr, fn))
+                setattr(owner, attr, self._wrap(name, kernel.record, fn))
         return self
 
+    def _wrap(self, name, record, fn):
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if self.on:
+                call = record(args, kwargs, out)
+                if call is not None:
+                    self.calls[name].append(call)
+            return out
+        return recorded
+
     def remove(self):
-        rar, crop, rcnn = self.mods
-        rar._pool_forward, rar.roi_align_rotated_packed_backward, crop.crop_rois_batched = self.orig[:3]
-        if self.orig[3] is not None:
-            rcnn.crop_rois_batched = self.orig[3]
+        for owner, attr, fn in reversed(self.orig):
+            setattr(owner, attr, fn)
+        self.orig = []

@@ -14,8 +14,10 @@ its activations of order one.
   reference's own activations on one scene (``calibrate``), so that a
   random model's scores, boxes and words vary as a trained model's do.
 * ``train``: detectron2's small init of the predictors (RPN and class and
-  orientation scores 0.01, box and mask deltas 0.001, zero biases) and
-  identity running statistics, as a training run starts.
+  orientation scores 0.01, box and mask deltas 0.001, zero biases), zero
+  offsets of every deformable convolution (its ``conv2_offset``: the
+  deformable trunk starts as the plain one) and identity running
+  statistics, as a training run starts.
 """
 
 from __future__ import annotations
@@ -92,6 +94,9 @@ def seeded_state_dict(cfg, seed: int, device, kind: str) -> dict:
                 w = out[f"{prefix}.weight"]
                 out[f"{prefix}.weight"] = torch.randn(w.shape, generator=small, device=device) * std
                 out[f"{prefix}.bias"] = torch.zeros_like(out[f"{prefix}.bias"])
+        for n in params:
+            if ".conv2_offset." in n:
+                out[n] = torch.zeros_like(out[n])
         for name in bns:
             out[f"{name}.running_mean"] = torch.zeros_like(out[f"{name}.running_mean"])
             out[f"{name}.running_var"] = torch.ones_like(out[f"{name}.running_var"])

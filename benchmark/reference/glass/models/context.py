@@ -40,19 +40,20 @@ class Conv2d(nn.Conv2d):
     the optional ReLU."""
 
     def __init__(self, cin, cout, kernel_size, stride=1, padding=0, bias=True,
-                 norm: bool = False, relu: bool = False):
-        super().__init__(cin, cout, kernel_size, stride, padding, bias=bias)
+                 norm: bool = False, relu: bool = False, dilation=1, groups=1):
+        super().__init__(cin, cout, kernel_size, stride, padding, dilation, groups, bias=bias)
         if norm:
             self.norm = BatchNorm2d(cout)
         self.relu = relu
 
     def forward(self, x):
-        out = L.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        out = L.conv2d(x, self.weight, self.bias, self.stride, self.padding, self.dilation, self.groups)
         if hasattr(self, "norm"):
             out = self.norm(out)
         return L.relu(out) if self.relu else out
 
 
-def conv_norm(cin, cout, kernel_size, stride=1, padding=0, relu=False) -> Conv2d:
+def conv_norm(cin, cout, kernel_size, stride=1, padding=0, relu=False, dilation=1, groups=1) -> Conv2d:
     """Bias-free conv with an attached BN (d2 NORM=BN/SyncBN)."""
-    return Conv2d(cin, cout, kernel_size, stride, padding, bias=False, norm=True, relu=relu)
+    return Conv2d(cin, cout, kernel_size, stride, padding, bias=False, norm=True, relu=relu,
+                  dilation=dilation, groups=groups)

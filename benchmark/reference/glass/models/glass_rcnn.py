@@ -2,7 +2,7 @@
 
 Counterpart of ``glass_tpu/models/glass_rcnn.py``:
 
-    normalize -> ResNet-50 + FPN -> rotated RPN -> box head (+orientation)
+    normalize -> ResNet trunk (MODEL.RESNETS) + FPN -> rotated RPN -> box head (+orientation)
     -> rotated NMS -> [P2P3 fusion + 8x32 pool of the fused P2 | 128x128
     raw-image crops -> local CNN] -> channel concat -> GC attention ->
     CNN_V1_1 -> BiLSTM -> greedy ASTER decode  (+ 14x14 mask head)
@@ -59,6 +59,7 @@ from .local_extractor import build_local_extractor
 from .mask_head import MaskRCNNConvUpsampleHead, mask_inference_probs
 from .pooler_pad import padded_pool
 from .recognizer import RecognizerHead, aster_decode_greedy, ctc_logits
+from .resnet import Trunk
 from . import rpn as rpn_mod
 from ..ops.boxes import apply_deltas
 from ..ops.crop import crop_rois_batched
@@ -128,6 +129,7 @@ class GlassArch:
     mask_pooler_resolution: int = 14
     mask_num_conv: int = 4
     freeze_at: int = 0
+    trunk: Trunk = Trunk()
     compute_dtype: str = "float32"
     remat_backbone: bool = False
     text_emit: str = "topk"
@@ -220,6 +222,7 @@ class GlassArch:
             mask_pooler_resolution=cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION,
             mask_num_conv=cfg.MODEL.ROI_MASK_HEAD.NUM_CONV,
             freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
+            trunk=Trunk.from_config(cfg.MODEL.RESNETS),
             compute_dtype=cfg.TPU.COMPUTE_DTYPE,
             remat_backbone=cfg.TPU.REMAT_BACKBONE,
             text_emit=cfg.TPU.TEXT_EMIT,
@@ -254,7 +257,7 @@ class GlassRCNN(nn.Module):
         super().__init__()
         _check_ported(arch)
         self.arch = arch
-        self.backbone = ResNetFPN(256, arch.freeze_at)
+        self.backbone = ResNetFPN(256, arch.freeze_at, arch.trunk)
         self.proposal_generator = nn.Module()
         self.proposal_generator.rpn_head = rpn_mod.StandardRPNHead(256, arch.num_anchors)
         rh = nn.Module()

@@ -97,6 +97,58 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
     ))
 
 
+def _bilinear_zero(x, y, xs):
+    """x (N, G, C, H, W) sampled at the points y, xs (N, G, P): (N, G, C, P),
+    bilinearly, each of the four corners that lies outside the map reading
+    0 (the sampling of detectron2's deformable convolution)."""
+    n, g, c, h, w = x.shape
+    flat = x.reshape(n, g, c, h * w)
+    y0, x0 = torch.floor(y), torch.floor(xs)
+    ly, lx = y - y0, xs - x0
+    y0, x0 = y0.long(), x0.long()
+    out = 0
+    for dy, wy in ((0, 1 - ly), (1, ly)):
+        for dx, wx in ((0, 1 - lx), (1, lx)):
+            yy, xx = y0 + dy, x0 + dx
+            inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1))[:, :, None].expand(n, g, c, -1)
+            tap = (wy * wx * inside).to(x.dtype)[:, :, None]
+            out = out + torch.gather(flat, 3, idx) * tap
+    return out
+
+
+def deform_conv2d(x, offset, mask, weight, stride=1, dilation=1, groups=1):
+    """detectron2's deformable 3x3 convolution (``DeformConv``, and with a
+    ``mask`` ``ModulatedDeformConv``), padding ``dilation``, no bias:
+
+        y[o, p] = sum_k sum_{c in o's group} w[o, c, k] m_k(p) x_c(p s - d + k d + D_k(p))
+
+    ``offset`` (N, 2 G K, Ho, Wo) holds D_k = (dy, dx) of tap k in channels
+    2k and 2k + 1 of each deformable group's 2K (G groups of the input
+    channels, taken in order); ``mask`` (N, G K, Ho, Wo) or None (m = 1).
+    The taps are gathered (``_bilinear_zero``) into columns, then one
+    product per convolution group."""
+    n, c, h, w = x.shape
+    cout, cg, kh, kw = weight.shape
+    k = kh * kw
+    ho, wo = offset.shape[2:]
+    g = offset.shape[1] // (2 * k)
+    rows = torch.arange(ho, device=x.device, dtype=torch.float32) * stride - dilation
+    cols = torch.arange(wo, device=x.device, dtype=torch.float32) * stride - dilation
+    ki = torch.arange(kh, device=x.device, dtype=torch.float32).repeat_interleave(kw) * dilation
+    kj = torch.arange(kw, device=x.device, dtype=torch.float32).repeat(kh) * dilation
+    off = offset.to(torch.float32).reshape(n, g, k, 2, ho, wo)
+    y = rows[None, None, None, :, None] + ki[None, None, :, None, None] + off[:, :, :, 0]
+    xs = cols[None, None, None, None, :] + kj[None, None, :, None, None] + off[:, :, :, 1]
+    taps = _bilinear_zero(x.reshape(n, g, c // g, h, w), y.reshape(n, g, -1), xs.reshape(n, g, -1))
+    taps = taps.reshape(n, g, c // g, k, ho * wo)
+    if mask is not None:
+        taps = taps * mask.reshape(n, g, 1, k, ho * wo).to(x.dtype)
+    taps = taps.reshape(n, groups, cg * k, ho * wo)
+    wg = weight.to(x.dtype).reshape(groups, cout // groups, cg * k)
+    return einsum("goc,ngcl->ngol", wg, taps).reshape(n, cout, ho, wo)
+
+
 def conv_transpose2d(x, weight, bias=None, stride=2):
     """``ConvTranspose2d`` with PyTorch's (in, out, kh, kw) weight."""
     return qg(F.conv_transpose2d(

@@ -5,6 +5,7 @@ import numpy as np
 import torch
 
 from benchmark.harness import roofline
+from benchmark.kernels import k1, k1b, k2
 from benchmark.reference.glass.models import glass_rcnn as R
 from benchmark.reference.glass.models.glass_rcnn import GlassArch, GlassRCNN
 
@@ -25,27 +26,27 @@ def test_k1_cost():
     call = {"meta": META, "rois": ROIS, "levels": LEVELS, "grid": GRID, "out_hw": (1, 1),
             "channels": 4, "elt": 4}
     # output 1x1x4 f32 written (16 B), four rows of 4 f32 read (64 B); 8 operations a channel a sample
-    assert roofline.k1_cost(call) == (16 + 64, 8 * 4)
+    assert k1.cost(call) == (16 + 64, 8 * 4)
 
 
 def test_k1_cost_counts_a_row_shared_by_two_rois_once():
     call = {"meta": META, "rois": ROIS.repeat(2, 1), "levels": LEVELS.repeat(2), "grid": GRID.repeat(2, 1),
             "out_hw": (1, 1), "channels": 4, "elt": 2}
-    assert roofline.k1_cost(call) == (2 * 4 * 2 + 4 * 4 * 2, 2 * 8 * 4)
+    assert k1.cost(call) == (2 * 4 * 2 + 4 * 4 * 2, 2 * 8 * 4)
 
 
 def test_k1b_cost():
     call = {"rois": ROIS, "grid": torch.full((1, 2), 2, dtype=torch.int32), "out_hw": (1, 1), "channels": 4,
             "elt": 2, "n_rows": 64, "out_elt": 2}
     # upstream gradient 1x1x4 bf16 read, the dense 64x4 bf16 gradient written; 2x2 samples
-    assert roofline.k1b_cost(call) == (8 + 64 * 4 * 2, 8 * 4 * 4)
+    assert k1b.cost(call) == (8 + 64 * 4 * 2, 8 * 4 * 4)
 
 
 def test_k2_cost():
     call = {"images_shape": (1, 8, 8, 3), "image_elt": 1, "rois": ROIS[None], "out_hw": (1, 1),
             "sampling_ratio": 1, "max_sampling_ratio": 2, "out_elt": 4}
     # one f32 pixel of 3 channels written, four uint8 pixels of 3 channels read
-    assert roofline.k2_cost(call) == (12 + 4 * 3, 8 * 3)
+    assert k2.cost(call) == (12 + 4 * 3, 8 * 3)
 
 
 def test_least_time_takes_the_larger_bound():
